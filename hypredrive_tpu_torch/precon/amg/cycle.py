@@ -1,0 +1,95 @@
+"""V/W multigrid cycles on the device.
+
+Counterpart of ``hypredrive_tpu/precon/amg/cycle.py``.  Eager torch: each
+smoother step is a matvec (DIA + CSR kernels, or ``torch.mv`` on the dense
+coarse levels) and a few vector ops; grid transfers are the same matvec,
+and the coarsest solve is a dense matvec with the uploaded inverse.
+``torch.profiler.record_function`` spans ``amg_L{l}_pre/restrict/post``
+group device time per level and phase in a profiler trace.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch.profiler import record_function
+
+from .hierarchy import AMGLevel, AMGState, _not_ported
+
+
+def _smooth(level: AMGLevel, x, b, sweeps: int, phase: str = "pre",
+            zero_guess: bool = False):
+    """sweeps × (x += B(b − Ax)) with the level's smoother.
+
+    ``zero_guess`` marks x == 0 on entry: the first sweep's residual is
+    then just b, saving one A-matvec per level per cycle.
+    """
+    if sweeps <= 0:
+        return x
+    A = level.A
+
+    def resid(x, first):
+        # b − A·x, with A·0 elided on the first sweep of a zero guess
+        if first and zero_guess:
+            return b
+        return b - A.matvec(x)
+
+    kind = level.smoother
+    arrays = level.smooth_arrays
+    if phase == "post" and level.up_smoother is not None:
+        kind = level.up_smoother
+        arrays = level.up_arrays
+    if kind == "chebyshev":
+        d_inv, theta, delta, rhos = arrays
+        for i in range(sweeps):
+            # Chebyshev on the residual equation A e = r, x += e
+            r = resid(x, i == 0)
+            z = d_inv * r / theta
+            d = z
+            rho_prev = rhos[0]
+            for k in range(1, len(rhos)):
+                rk = d_inv * (r - A.matvec(z))
+                d = rhos[k] * rho_prev * d + (2.0 * rhos[k] / delta) * rk
+                z = z + d
+                rho_prev = rhos[k]
+            x = x + z
+        return x
+    if kind in ("jacobi", "l1-jacobi"):
+        (d_inv,) = arrays
+        for i in range(sweeps):
+            x = x + d_inv * resid(x, i == 0)
+        return x
+    raise _not_ported(f"smoother '{kind}'")
+
+
+def _cycle(state: AMGState, lvl: int, b):
+    """One multigrid cycle on level lvl for A_l e = b, e₀ = 0."""
+    levels = state.levels
+    level = levels[lvl]
+    if lvl == len(levels) - 1:
+        return torch.mv(state.coarse_inv, b)
+
+    with record_function(f"amg_L{lvl}_pre"):
+        x = torch.zeros_like(b)
+        x = _smooth(level, x, b, level.pre_sweeps, phase="pre",
+                    zero_guess=True)
+        r = b - level.A.matvec(x)
+    with record_function(f"amg_L{lvl}_restrict"):
+        rc = level.R.matvec(r)
+    ec = _cycle(state, lvl + 1, rc)
+    if state.cycle_type == 1 and lvl + 1 < len(levels) - 1:
+        # W-cycle: second coarse visit
+        rc2 = rc - levels[lvl + 1].A.matvec(ec)
+        ec = ec + _cycle(state, lvl + 1, rc2)
+    with record_function(f"amg_L{lvl}_post"):
+        x = x + level.P.matvec(ec)
+        x = _smooth(level, x, b, level.post_sweeps, phase="post")
+    return x
+
+
+def amg_apply(state: AMGState, r):
+    """z ≈ A⁻¹ r: max_iter cycles (preconditioner default 1)."""
+    z = _cycle(state, 0, r)
+    for _ in range(state.max_iter - 1):
+        resid = r - state.levels[0].A.matvec(z)
+        z = z + _cycle(state, 0, resid)
+    return z

@@ -1,0 +1,295 @@
+"""AMG hierarchy setup (host) → device levels.
+
+Counterpart of ``hypredrive_tpu/precon/amg/hierarchy.py`` for one device.
+The setup runs on the host in numpy/scipy (and the native helpers):
+
+    strength → coarsen (PMIS/HMIS) → interpolation → RAP
+
+per level until max_coarse_size / max_levels, then a dense coarse-grid
+inverse (the reference coarse_type default 9 = Gaussian elimination).  The
+host arithmetic is the JAX package's, so both packages build the same
+levels; only the upload differs.  Each level's A, P and R become
+:class:`~hypredrive_tpu_torch.ops.device_matrix.EllMatrix` on the target
+device, with the smoother vectors beside them.
+
+Ported smoothers: Chebyshev (relax type 16, the default), Jacobi (0, 7)
+and ℓ1-Jacobi (18).  Hybrid Gauss-Seidel, C/F and AIR schedules, FSAI
+complex smoothers, aggressive coarsening and AIR restriction raise a typed
+"not yet ported" error.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import List, Optional, Tuple
+
+import numpy as np
+import scipy.sparse as sp
+import torch
+
+from ...core.errors import ErrorCode, HypredrvError
+from ...ops.device_matrix import EllMatrix
+from .coarsen import coarsen
+from .interp import build_interpolation
+from .strength import strength_graph
+
+# relax-type codes → smoother kinds (ref vocab: amg.c AMGrlxGetValidValues)
+_RELAX_KIND = {
+    0: "jacobi", 7: "jacobi", 18: "l1-jacobi",
+    3: "gs-fwd", 4: "gs-bwd", 5: "gs-fwd", 6: "gs-sym",
+    8: "gs-sym", 10: "gs-fwd", 11: "gs-fwd", 12: "gs-fwd",
+    13: "gs-fwd", 14: "gs-bwd", 89: "gs-sym",
+    16: "chebyshev",
+}
+PORTED_SMOOTHERS = ("chebyshev", "jacobi", "l1-jacobi")
+
+
+def _not_ported(what: str) -> HypredrvError:
+    return HypredrvError(f"AMG {what} is not yet ported to "
+                         "hypredrive_tpu_torch", ErrorCode.NOT_IMPLEMENTED)
+
+
+@dataclass
+class AMGLevel:
+    A: EllMatrix
+    P: Optional[EllMatrix]          # prolongation (None on coarsest)
+    R: Optional[EllMatrix]          # restriction Pᵀ
+    smooth_arrays: Tuple            # operands of the down smoother
+    smoother: str = "l1-jacobi"     # down/pre kind
+    pre_sweeps: int = 1
+    post_sweeps: int = 1
+    up_smoother: Optional[str] = None   # None → same as down
+    up_arrays: Optional[Tuple] = None
+
+
+@dataclass
+class AMGState:
+    levels: Tuple[AMGLevel, ...]
+    coarse_inv: Optional[torch.Tensor]  # dense inverse of coarsest A
+    cycle_type: int = 0                  # 0=V, 1=W
+    max_iter: int = 1
+
+
+def _galerkin_rap(A_l: sp.csr_matrix, P: sp.csr_matrix) -> sp.csr_matrix:
+    """A_c = Pᵀ·A·P (native fast path, scipy otherwise)."""
+    from ...io.native import amg_rap
+
+    Ac = amg_rap(sp.csr_matrix(A_l), sp.csr_matrix(P))
+    if Ac is not None:
+        return Ac
+    A_c = sp.csr_matrix(sp.csr_matrix(P.T) @ A_l @ P)
+    A_c.sort_indices()
+    return A_c
+
+
+def _bucket_rows(n: int) -> int:
+    """Shape-stability bucket for coarse-level sizes: round n (above 32)
+    up to the next multiple of q = max(32, 2^(bitlen(n)-4)), as the JAX
+    package does, so both hierarchies have the same level sizes."""
+    if n <= 32:
+        return n
+    q = max(32, 1 << (int(n).bit_length() - 4))
+    return -(-n // q) * q
+
+
+def _pad_level(A_c: sp.csr_matrix, P: sp.csr_matrix, R: sp.csr_matrix,
+               npad: int):
+    """Pad the coarse operator to ``npad`` rows with identity rows.
+
+    Exact no-ops: R's pad rows are zero, so padded residuals are always 0
+    and the pad solution entries stay 0 through every cycle."""
+    ext = npad - A_c.shape[0]
+    A_c = sp.bmat([[A_c, None],
+                   [None, sp.identity(ext, format="csr",
+                                      dtype=A_c.dtype)]],
+                  format="csr")
+    P = sp.csr_matrix(sp.hstack(
+        [P, sp.csr_matrix((P.shape[0], ext), dtype=P.dtype)]))
+    R = sp.csr_matrix(sp.vstack(
+        [R, sp.csr_matrix((ext, R.shape[1]), dtype=R.dtype)]))
+    A_c.sort_indices()
+    P.sort_indices()
+    R.sort_indices()
+    return A_c, P, R
+
+
+def _power_lambda_max(A_host: sp.csr_matrix, d_inv: np.ndarray,
+                      iters: int = 10, seed: int = 0) -> float:
+    """Host power iteration on D⁻¹A (setup-phase λmax estimate); draws the
+    same numbers as the JAX package."""
+    rng = np.random.default_rng(seed)
+    v = rng.standard_normal(A_host.shape[0])
+    lam = 1.0
+    for _ in range(max(1, iters)):
+        w = d_inv * (A_host @ v)
+        lam = np.linalg.norm(w)
+        if lam == 0:
+            return 1.0
+        v = w / lam
+    return float(lam)
+
+
+def _smoother_arrays(kind: str, A_host: sp.csr_matrix, dtype, device,
+                     cheby_args=None, weight: float = 1.0) -> Tuple:
+    """Chebyshev: (d_inv, θ, δ, ρ_k); (ℓ1-)Jacobi: (d_inv,).  Vectors are
+    tensors on ``device``; the Chebyshev scalars stay Python floats."""
+    def vec(a):
+        return torch.as_tensor(a, dtype=dtype, device=device)
+
+    if kind == "chebyshev":
+        from ..chebyshev import cheby_coefficients
+
+        order = int(cheby_args.get("order", 2)) if cheby_args else 2
+        fraction = float(cheby_args.get("fraction", 0.3)) if cheby_args else 0.3
+        eig_iters = int(cheby_args.get("eig_est", 10)) if cheby_args else 10
+        diag = A_host.diagonal()
+        d_inv_np = np.where(diag != 0, 1.0 / diag, 1.0)
+        lam = _power_lambda_max(A_host, d_inv_np, eig_iters) * 1.1
+        theta, delta, rhos = cheby_coefficients(lam, fraction, order)
+        return (vec(d_inv_np), float(theta), float(delta),
+                tuple(float(r) for r in rhos))
+    if kind == "jacobi":
+        diag = A_host.diagonal()
+        return (vec(np.where(diag != 0, weight / diag, 1.0)),)
+    if kind == "l1-jacobi":
+        l1 = np.asarray(np.abs(A_host).sum(axis=1)).ravel()
+        return (vec(np.where(l1 != 0, weight / l1, 1.0)),)
+    raise _not_ported(f"smoother '{kind}'")
+
+
+def _check_ported(amg_args) -> Tuple[str, str]:
+    """(down kind, up kind); raises for options outside the port."""
+    rlx = amg_args.relaxation
+    if int(rlx.type) >= 0:
+        down_kind = up_kind = _RELAX_KIND.get(int(rlx.type), "l1-jacobi")
+    else:
+        down_kind = _RELAX_KIND.get(int(rlx.down_type), "l1-jacobi")
+        up_kind = _RELAX_KIND.get(int(rlx.up_type), "l1-jacobi")
+    for kind in (down_kind, up_kind):
+        if kind not in PORTED_SMOOTHERS:
+            raise _not_ported(f"smoother '{kind}'")
+    # Chebyshev keeps its own schedule under both options; the point-wise
+    # smoothers would switch to the F/C-masked ones
+    pointwise = {down_kind, up_kind} - {"chebyshev"}
+    if int(rlx.points) == 1 and pointwise:
+        raise _not_ported("relaxation.points=air (F/C schedule)")
+    if int(rlx.order) == 1 and pointwise:
+        raise _not_ported("relaxation.order=1 (C/F relaxation)")
+    if int(amg_args.smoother.num_levels) > 0 \
+            and int(amg_args.smoother.type) in (4, 5, 7, 8, 9):
+        raise _not_ported("complex smoother (FSAI)")
+    if int(amg_args.aggressive.num_levels) > 0:
+        raise _not_ported("aggressive coarsening")
+    if int(amg_args.interpolation.restriction_type) != 0:
+        raise _not_ported("AIR restriction")
+    return down_kind, up_kind
+
+
+def setup_hierarchy(A_host: sp.csr_matrix, amg_args,
+                    dtype: torch.dtype = torch.float64,
+                    device: torch.device = torch.device("cpu"),
+                    fine_matrix: Optional[EllMatrix] = None) -> AMGState:
+    """Build the multigrid hierarchy from the AMG config Args (schema:
+    config/sections.py AMG_SCHEMA; ref arg structs amg.h:23-123) and upload
+    it to ``device``.  ``fine_matrix`` is reused as the finest level's A
+    when it has the right dtype and device."""
+    kind, up_kind = _check_ported(amg_args)
+    device = torch.device(device)
+    if fine_matrix is not None and (fine_matrix.dtype != dtype
+                                    or fine_matrix.device != device):
+        fine_matrix = None
+    csn = amg_args.coarsening
+    itp = amg_args.interpolation
+    rlx = amg_args.relaxation
+
+    theta = float(csn.strong_th)
+    sabs = bool(csn.sabs)
+    seed_base = int(getattr(csn, "rand_seed", 0))
+    max_levels = int(csn.max_levels)
+    max_coarse = max(1, int(csn.max_coarse_size))
+    min_coarse = int(csn.min_coarse_size)
+    num_sweeps = max(1, int(rlx.num_sweeps))
+    pre = int(rlx.down_sweeps) if int(rlx.down_sweeps) >= 0 else num_sweeps
+    post = int(rlx.up_sweeps) if int(rlx.up_sweeps) >= 0 else num_sweeps
+    weight = float(rlx.weight)
+
+    def smoothers(A_l):
+        sm = _smoother_arrays(kind, A_l, dtype, device, rlx.chebyshev,
+                              weight)
+        if up_kind == kind:
+            return sm, None, None
+        return sm, up_kind, _smoother_arrays(up_kind, A_l, dtype, device,
+                                             rlx.chebyshev, weight)
+
+    levels: List[AMGLevel] = []
+    A_l = sp.csr_matrix(A_host)
+    n_real = A_l.shape[0]   # unpadded level size (pad rows do not count
+                            # toward the min/max_coarse termination checks)
+    for lvl in range(max_levels - 1):
+        if n_real <= max_coarse or (min_coarse and n_real <= min_coarse):
+            break
+        n = A_l.shape[0]
+        S = strength_graph(A_l, theta=theta, sabs=sabs)
+        if S.nnz == 0:
+            break
+        cf = coarsen(S, ctype=int(csn.type), seed=lvl + seed_base)
+        nC = int((cf > 0).sum())
+        if nC == 0 or nC >= n:
+            break
+        P = build_interpolation(
+            A_l, S, cf,
+            prolongation_type=int(itp.prolongation_type),
+            trunc_factor=float(itp.trunc_factor),
+            max_nnz_row=int(itp.max_nnz_row))
+        R = sp.csr_matrix(P.T)
+        A_c = _galerkin_rap(A_l, P)
+        nC_real = A_c.shape[0]
+        npad_c = _bucket_rows(nC_real)
+        if npad_c > nC_real:
+            A_c, P, R = _pad_level(A_c, P, R, npad_c)
+
+        E = (fine_matrix if lvl == 0 and fine_matrix is not None
+             else EllMatrix.from_csr(A_l, dtype=dtype, device=device))
+        sm, up_k, up_sm = smoothers(A_l)
+        levels.append(AMGLevel(
+            A=E,
+            P=EllMatrix.from_csr(P, dtype=dtype, device=device),
+            R=EllMatrix.from_csr(R, dtype=dtype, device=device),
+            smooth_arrays=sm, smoother=kind,
+            pre_sweeps=pre, post_sweeps=post,
+            up_smoother=up_k, up_arrays=up_sm,
+        ))
+        A_l = A_c
+        n_real = nC_real
+        if nC_real <= max_coarse:
+            break
+
+    # coarsest level: dense inverse (ref coarse_type 9 = GE), uploaded once
+    sm_c, _, _ = smoothers(A_l)
+    levels.append(AMGLevel(
+        A=EllMatrix.from_csr(A_l, dtype=dtype, device=device),
+        P=None, R=None, smooth_arrays=sm_c,
+        smoother=kind, pre_sweeps=pre, post_sweeps=post,
+    ))
+    dense = np.asarray(A_l.todense(), dtype=np.float64)
+    try:
+        inv = np.linalg.inv(dense)
+    except np.linalg.LinAlgError:
+        inv = np.linalg.pinv(dense)
+
+    return AMGState(
+        levels=tuple(levels),
+        coarse_inv=torch.as_tensor(inv, dtype=dtype, device=device),
+        cycle_type=0 if int(getattr(amg_args, "cycle_type", 1)) <= 1 else 1,
+        max_iter=max(1, int(amg_args.max_iter)),
+    )
+
+
+def hierarchy_summary(state: AMGState) -> str:
+    lines = ["AMG hierarchy:"]
+    for i, lv in enumerate(state.levels):
+        n = lv.A.shape[0]
+        lines.append(
+            f"  level {i}: n={n} nnz={lv.A.nnz} smoother={lv.smoother} "
+            f"(pre={lv.pre_sweeps}, post={lv.post_sweeps})")
+    return "\n".join(lines)

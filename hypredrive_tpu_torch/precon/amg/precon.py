@@ -1,0 +1,31 @@
+"""AMG preconditioner: the BoomerAMG-equivalent.
+
+Config surface: AMG_SCHEMA (ref: src/internal/amg.c arg structs).  Setup
+builds the hierarchy on the host and uploads it to the system's device;
+apply runs V/W cycles there.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..base import Preconditioner
+from ...core.logging import log
+from .cycle import amg_apply
+from .hierarchy import hierarchy_summary, setup_hierarchy
+
+
+class AMGPrecon(Preconditioner):
+    method = "amg"
+
+    def setup(self, system):
+        A_host = system.A_host if system.A_host is not None \
+            else system.A.to_csr()
+        self.state = setup_hierarchy(A_host, self.args, dtype=system.dtype,
+                                     device=system.device,
+                                     fine_matrix=system.A)
+        log(2, hierarchy_summary(self.state))
+        self.is_setup = True
+
+    def apply(self, r: torch.Tensor) -> torch.Tensor:
+        return amg_apply(self.state, r)

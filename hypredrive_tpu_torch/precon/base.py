@@ -1,0 +1,51 @@
+"""Preconditioner protocol and dispatch.
+
+A preconditioner builds its state on setup (host setup allowed) and
+applies ``z = M⁻¹ r`` on the system's device (ref: hypre's precond
+callback pair, src/internal/solver.c:268-337).
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from ..core.errors import ErrorCode, HypredrvError
+
+
+class Preconditioner:
+    """Base preconditioner; the identity until a subclass overrides it."""
+
+    method = "base"
+
+    def __init__(self, args, input_args=None):
+        self.args = args
+        self.input_args = input_args
+        self.state: Any = None
+        self.is_setup = False
+
+    def setup(self, system):
+        """Build device state from the system."""
+        self.is_setup = True
+
+    def apply(self, r: torch.Tensor) -> torch.Tensor:
+        return r
+
+
+class NonePrecon(Preconditioner):
+    method = "none"
+
+
+def create_precon(precon_config, input_args=None) -> Preconditioner:
+    """ref: hypredrv_PreconCreate dispatch (precon.c:461-563)."""
+    from .amg import AMGPrecon
+
+    registry = {"none": NonePrecon, "amg": AMGPrecon}
+    cls = registry.get(precon_config.method)
+    if cls is None:
+        raise HypredrvError(
+            f"preconditioner '{precon_config.method}' is not yet ported to "
+            "hypredrive_tpu_torch (available: amg, none)",
+            ErrorCode.NOT_IMPLEMENTED)
+    return cls(precon_config.args, input_args)

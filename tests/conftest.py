@@ -29,3 +29,8 @@ import pytest
 @pytest.fixture
 def rng():
     return np.random.default_rng(42)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; skipped without one")

@@ -1,0 +1,125 @@
+"""The CUDA kernels and the device path on the card.
+
+Every test here needs an NVIDIA GPU: it is marked ``cuda`` and skips
+without one (a CUDA kernel has no CPU mode; its plain version is what the
+CPU tests check against the JAX package).  This file imports neither JAX
+nor the JAX package, so on a machine with a card it runs on its own:
+
+    python -m pytest tests/test_torch_cuda.py --noconftest -q
+
+Tolerances: the kernels and their plain versions sum in different orders
+(lane-parallel shuffles against torch's reductions), so they agree to
+float32 rounding (rel 1e-5) or float64 rounding (rel 1e-12).
+"""
+
+import os
+
+import numpy as np
+import pytest
+import scipy.sparse as sp
+import torch
+
+import hypredrive_tpu_torch
+from hypredrive_tpu_torch.ops.csr import laplacian_3d_7pt
+from hypredrive_tpu_torch.ops.csr_spmv import csr_spmv, csr_spmv_plain
+from hypredrive_tpu_torch.ops.device_matrix import EllMatrix
+from hypredrive_tpu_torch.ops.dia_spmv import dia_spmv, dia_spmv_plain
+
+pytestmark = pytest.mark.cuda
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
+DTYPES = sorted(TOL, key=str)
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _close(y, ref, dtype):
+    return float((y - ref).abs().max()) <= TOL[dtype] * float(ref.abs().max())
+
+
+DIA_CASES = {
+    "mixed": (3000, 3000, (-1200, -129, -1, 0, 1, 137, 255)),
+    "all_positive": (3000, 3000, (3, 130, 300)),
+    "rectangular": (1500, 900, (-400, -7, 0, 5, 300)),
+    "max_diags": (5000, 5000, tuple(range(-24, 24))),
+}
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("case", sorted(DIA_CASES))
+def test_dia_kernel_matches_plain(dev, dtype, case):
+    n_rows, n_cols, offsets = DIA_CASES[case]
+    rng = np.random.default_rng(1)
+    dia = torch.tensor(rng.standard_normal((len(offsets), n_rows)),
+                       dtype=dtype, device=dev)
+    x = torch.tensor(rng.standard_normal(n_cols), dtype=dtype, device=dev)
+    before = dia_spmv.launches
+    y = dia_spmv(dia, offsets, x, n_cols)
+    assert dia_spmv.launches == before + 1
+    assert _close(y, dia_spmv_plain(dia, offsets, x, n_cols), dtype)
+
+
+CSR_CASES = {"square": (6000, 6000, 0.002), "tall": (6000, 2000, 0.003),
+             "wide": (2000, 6000, 0.01), "long_rows": (300, 4000, 0.05)}
+
+
+@pytest.mark.parametrize("group", [2, 4, 8, 16, 32])
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("case", sorted(CSR_CASES))
+def test_csr_kernel_matches_plain(dev, dtype, case, group):
+    m, n, density = CSR_CASES[case]
+    rng = np.random.default_rng(3)
+    A = sp.random(m, n, density=density, random_state=rng, format="csr")
+    A.data = rng.standard_normal(A.nnz)
+    A.sort_indices()
+    ip = torch.tensor(A.indptr, dtype=torch.int64, device=dev)
+    ix = torch.tensor(A.indices, dtype=torch.int32, device=dev)
+    dd = torch.tensor(A.data, dtype=dtype, device=dev)
+    x = torch.tensor(rng.standard_normal(n), dtype=dtype, device=dev)
+    before = csr_spmv.launches
+    y = csr_spmv(ip, ix, dd, x, m, group)
+    ref = csr_spmv_plain(ip, ix, dd, x, m)
+    assert _close(y, ref, dtype)
+    y2 = csr_spmv(ip, ix, dd, x, m, group, out=torch.ones_like(y))
+    assert _close(y2 - 1, ref, dtype)
+    assert csr_spmv.launches == before + 2
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_hybrid_matvec_on_card_matches_cpu(dev, dtype):
+    """DIA launch then CSR launch into the same y, against the CPU path."""
+    rng = np.random.default_rng(4)
+    A = sp.csr_matrix(laplacian_3d_7pt(24)
+                      + sp.random(13824, 13824, density=2e-4,
+                                  random_state=rng, format="csr"))
+    E_gpu = EllMatrix.from_csr(A, dtype=dtype, device=dev)
+    E_cpu = EllMatrix.from_csr(A, dtype=dtype)
+    assert E_gpu.dia_data is not None and E_gpu.data is not None
+    x = rng.standard_normal(A.shape[1])
+    n_dia, n_csr = dia_spmv.launches, csr_spmv.launches
+    y = E_gpu.matvec(torch.tensor(x, dtype=dtype, device=dev)).cpu()
+    assert (dia_spmv.launches, csr_spmv.launches) == (n_dia + 1, n_csr + 1)
+    assert _close(y, E_cpu.matvec(torch.tensor(x, dtype=dtype)), dtype)
+
+
+def test_ex1_on_card_matches_cpu(dev, monkeypatch):
+    monkeypatch.chdir(REPO)
+    cfg = os.path.join("examples", "ex1.yml")
+    gpu = hypredrive_tpu_torch.solve(config=cfg)
+    cpu = hypredrive_tpu_torch.solve(
+        options={**_ex1_options(), "general": {"exec_policy": "host"}})
+    assert gpu.iters == cpu.iters == 5
+    np.testing.assert_allclose(gpu.x, cpu.x, rtol=1e-10, atol=1e-12)
+
+
+def _ex1_options():
+    return {"linear_system": {
+        "matrix_filename": "data/ps3d10pt7/np1/IJ.out.A",
+        "rhs_filename": "data/ps3d10pt7/np1/IJ.out.b"},
+        "solver": "pcg", "preconditioner": "amg"}
