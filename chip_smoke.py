@@ -12,16 +12,30 @@ Phases (any failure exits non-zero and prints no result line):
 2. Kernels against their plain torch versions on the card, at the shapes
    of the 128³ solve: the fine-grid DIA operator, and the CSR remainders of
    P, R and the first coarse A of its AMG hierarchy; float32 (rel 1e-5) and
-   float64 (rel 1e-12).  Kernel and plain times from CUDA events.
-3. examples/ex1.yml through ``hypredrive_tpu_torch.cli`` on the card in
-   float64: 5 iterations, relative residual ≤ 1e-6, and the solution
-   checked against scipy on the host.
-4. A 64³ Laplacian, PCG + AMG to 1e-8 in float32 through the driver API:
-   10 ± 1 iterations over 6 levels.
-5. A 128³ Laplacian (2,097,152 rows, 14,581,760 nnz), PCG + AMG to 1e-8 in
-   float64: within ±1 iteration of the JAX package's count.
-6. Both kernels' launch counters, zeroed before phase 3, are > 0 after
-   phase 5.
+   float64 (rel 1e-12).  Kernel and plain times from CUDA events over
+   back-to-back calls, and device times per call from torch.profiler.
+3. The solve paths, each with both kernels' launch counters zeroed just
+   before it and read just after; each must launch the kernels it runs:
+   - ex1: examples/ex1.yml through ``hypredrive_tpu_torch.cli`` in float64,
+     5 iterations, relative residual ≤ 1e-6, solution checked against
+     scipy on the host;
+   - lap64: a 64³ Laplacian, PCG + AMG to 1e-8 in float32 through the
+     driver API, 10 ± 1 iterations over 6 levels;
+   - lap128: a 128³ Laplacian (2,097,152 rows), PCG + AMG to 1e-8 in
+     float64, within ±1 iteration of the JAX package's count;
+   - mgr_ex3 / mgr_ex5: examples/ex3.yml and ex5.yml (GMRES + MGR on the
+     dofmap'd multiphysics system, ex5 through ``include:``) through the
+     CLI, 9 iterations each;
+   - jacobi_ex1: examples/ex1-jacobi.yml, 21 iterations;
+   - mgr_64: the nx = 64 three-field multiphysics system (786,432 rows),
+     GMRES(30) + ex3's MGR in float64 through the driver API: the JAX
+     package's iteration count and GMRES residual history (rel 1e-6), true
+     relative residual ≤ 1e-6;
+   - krylov_variants: FGMRES + MGR (9) and BiCGSTAB + MGR (6) on
+     data/multiphys2k through the driver API, dofmap from its file.
+4. Kernels against their plain versions at the MGR shapes of mgr_64 (level
+   0 P and R, the level 1 operator, the coarsest operator), float64 (rel
+   1e-12), with the CSR kernel's lanes-per-row choice swept on P and R.
 
 Prints the kernel table as one JSON line, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``.  Details go to
@@ -46,8 +60,42 @@ JAX_HISTORY_128_F64 = (
     0.00060304664419422, 6.900813139053883e-05, 8.635607504721512e-06)
 
 GOLDEN_EX1_ITERS = 5          # tests/test_examples.py GOLDEN["ex1.yml"]
+GOLDEN_EX3_ITERS = 9          # tests/test_examples.py GOLDEN["ex3.yml"]
+GOLDEN_EX1_JACOBI_ITERS = 21  # tests/test_examples.py GOLDEN["ex1-jacobi.yml"]
 JAX_ITERS_64_F32 = 10         # JAX package's 64³ float32 count
 JAX_LEVELS_64 = 6
+
+# JAX package on multiphysics_fv_system(64, 3, contrast=0.3, coupling=0.12,
+# convection=0.08) (786,432 rows, 6,742,016 nnz), b = ones, x0 = 0, float64,
+# GMRES(30) + ex3's MGR, run on the CPU (PERF.md): iterations, the GMRES
+# residual history, and the row counts of the coarsest AMG's levels
+JAX_ITERS_MGR64 = 44
+JAX_HISTORY_MGR64 = (
+    886.8100134752651, 72017.77272093638, 20139.493302809155, 2676.51767603565,
+    970.1984608324339, 678.3589318716658, 678.3532874887082, 606.619860462599,
+    489.69296448996465, 409.013531806931, 345.98504816445745,
+    322.3515283671175, 300.580274642792, 235.5700347795105, 116.91107736705754,
+    53.935004618468824, 27.981450249770102, 17.174614831500463,
+    13.25763863699021, 11.997632520871132, 10.987330242555512,
+    9.076583193430604, 7.469657205306917, 6.488912620093237, 4.847001830381881,
+    2.4665239239874324, 0.9844203235424079, 0.35482777408556626,
+    0.11591599561578839, 0.04376244552488981, 0.029727374396014927,
+    0.01521165566578143, 0.010541341924671115, 0.010420342985342113,
+    0.00866428525153385, 0.005057877290857739, 0.002926940613721099,
+    0.0020308397543692238, 0.00158599923226097, 0.0012916716852398138,
+    0.0010491151455256284, 0.0009207545150702499, 0.0008718228678136989,
+    0.0008043521942560302, 0.0005782035779433222)
+JAX_COARSEST_LEVELS_MGR64 = (262144, 98304, 22528, 3328, 384, 64)
+
+# ex3's MGR (examples/ex3.yml)
+EX3_MGR = {"mgr": {
+    "level": {0: {"f_dofs": [2], "prolongation_type": "jacobi"},
+              1: {"f_dofs": [1], "g_relaxation": "l1-hsgs",
+                  "restriction_type": "columped"}},
+    "coarsest_level": "amg"}}
+
+# objects one phase hands to a later one (the mgr_64 hierarchy)
+KEEP = {}
 
 
 class PhaseError(AssertionError):
@@ -82,6 +130,28 @@ def time_ms(fn, reps=50, warmup=3):
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, reps=20):
+    """Device time of one call of fn: the sum of its kernels' device times
+    under torch.profiler, per call.  Unlike back-to-back CUDA events it
+    excludes the gaps while the host launches, which bound event times of
+    kernels shorter than the host's launch period."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+             for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA)
+    return us / 1e3 / reps
+
+
 def phase_env(report):
     import torch
     from hypredrive_tpu_torch.ops import kernels
@@ -108,15 +178,95 @@ def phase_env(report):
           f"({time.perf_counter() - t0:.3f} s)")
 
 
+def spmv_bytes(kind, E, itemsize):
+    """Least bytes one matvec of E's DIA or CSR part moves: values,
+    indices, indptr, y and x once."""
+    nr, nc = E.shape
+    if kind == "dia_spmv":
+        return E.dia_data.numel() * itemsize + (nr + nc) * itemsize
+    return (E.data.numel() * (itemsize + 4) + (nr + 1) * 8
+            + (nr + nc) * itemsize)
+
+
+class KernelChecks:
+    """Each kernel against its plain version on the same inputs: max
+    error, and kernel and plain times from CUDA events."""
+
+    TOL = {"float32": 1e-5, "float64": 1e-12}
+
+    def __init__(self):
+        import numpy as np
+
+        self.rng = np.random.default_rng(0)
+        self.rows = []
+
+    def compare(self, name, shape_name, dt, run, plain, n_x, nbytes):
+        import numpy as np
+        import torch
+
+        dtn = str(dt).replace("torch.", "")
+        x = torch.as_tensor(self.rng.standard_normal(n_x), dtype=dt,
+                            device="cuda")
+        y = run(x)
+        yp = plain(x)
+        torch.cuda.synchronize()
+        err = float((y - yp).abs().max())
+        scale = float(yp.abs().max()) or 1.0
+        rel = err / scale
+        ms = time_ms(lambda: run(x))
+        plain_ms = time_ms(lambda: plain(x))
+        dev = device_ms(lambda: run(x))
+        plain_dev = device_ms(lambda: plain(x))
+        row = {"kernel": name, "shape": shape_name, "dtype": dtn,
+               "max_abs_err": err, "max_rel_err": rel,
+               "tol_rel": self.TOL[dtn], "ms": ms, "plain_ms": plain_ms,
+               "device_ms": dev, "plain_device_ms": plain_dev,
+               "bytes": nbytes,
+               # a profiler that saw no kernel leaves the event time
+               "tb_s": nbytes / ((dev if dev > 0 else ms) * 1e-3) / 1e12}
+        self.rows.append(row)
+        print(f"  {name:9s} {shape_name:38s} {dtn:8s} rel {rel:.3e}  "
+              f"events: kernel {ms:.4f} plain {plain_ms:.4f} ms; device: "
+              f"kernel {dev:.4f} plain {plain_dev:.4f} ms, "
+              f"{row['tb_s']:.2f} TB/s")
+        check(np.isfinite(rel) and rel <= self.TOL[dtn],
+              f"{name} {shape_name} {dt}: rel err {rel:.3e} > "
+              f"{self.TOL[dtn]}")
+        return row
+
+    def matrix(self, shape_name, E, dt):
+        """Every kernel part (DIA, CSR) of device matrix E."""
+        from hypredrive_tpu_torch.ops.csr_spmv import (csr_spmv,
+                                                       csr_spmv_plain)
+        from hypredrive_tpu_torch.ops.dia_spmv import (dia_spmv,
+                                                       dia_spmv_plain)
+
+        nr, nc = E.shape
+        size = dt.itemsize
+        check(E.dense is None, f"{shape_name} is stored dense")
+        if E.dia_data is not None:
+            dia, offs = E.dia_data.to(dt), E.dia_offsets
+            self.compare("dia_spmv", f"{shape_name} D={len(offs)}", dt,
+                         lambda x: dia_spmv(dia, offs, x, nc),
+                         lambda x: dia_spmv_plain(dia, offs, x, nc), nc,
+                         spmv_bytes("dia_spmv", E, size))
+        if E.data is not None:
+            data = E.data.to(dt)
+            self.compare("csr_spmv", f"{shape_name} nnz={E.data.numel()}",
+                         dt,
+                         lambda x: csr_spmv(E.indptr, E.indices, data, x, nr,
+                                            E.group),
+                         lambda x: csr_spmv_plain(E.indptr, E.indices, data,
+                                                  x, nr), nc,
+                         spmv_bytes("csr_spmv", E, size))
+
+
 def phase_kernels(report):
     """Each kernel against its plain version at the 128³ solve's shapes."""
-    import numpy as np
     import torch
     from hypredrive_tpu_torch.config.sections import AMG_SCHEMA
     from hypredrive_tpu_torch.ops.csr import laplacian_3d_7pt
-    from hypredrive_tpu_torch.ops.csr_spmv import csr_spmv, csr_spmv_plain
     from hypredrive_tpu_torch.ops.device_matrix import EllMatrix
-    from hypredrive_tpu_torch.ops.dia_spmv import dia_spmv, dia_spmv_plain
     from hypredrive_tpu_torch.precon.amg.hierarchy import setup_hierarchy
 
     dev = torch.device("cuda")
@@ -127,51 +277,20 @@ def phase_kernels(report):
                             dtype=torch.float64, device=dev, fine_matrix=A)
     print(f"128^3 hierarchy for the kernel checks: "
           f"{time.perf_counter() - t0:.3f} s")
-    rng = np.random.default_rng(0)
-    tol = {torch.float32: 1e-5, torch.float64: 1e-12}
-    rows = []
-
-    def compare(name, shape_name, dt, run, plain, n_x):
-        x = torch.as_tensor(rng.standard_normal(n_x), dtype=dt, device=dev)
-        y = run(x)
-        yp = plain(x)
-        torch.cuda.synchronize()
-        err = float((y - yp).abs().max())
-        scale = float(yp.abs().max()) or 1.0
-        rel = err / scale
-        ms = time_ms(lambda: run(x))
-        plain_ms = time_ms(lambda: plain(x))
-        row = {"kernel": name, "shape": shape_name,
-               "dtype": str(dt).replace("torch.", ""),
-               "max_abs_err": err, "max_rel_err": rel, "tol_rel": tol[dt],
-               "ms": ms, "plain_ms": plain_ms}
-        rows.append(row)
-        print(f"  {name:9s} {shape_name:34s} {row['dtype']:8s} "
-              f"rel {rel:.3e}  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms")
-        check(np.isfinite(rel) and rel <= tol[dt],
-              f"{name} {shape_name} {dt}: rel err {rel:.3e} > {tol[dt]}")
-
+    checks = KernelChecks()
     lv0, lv1 = state.levels[0], state.levels[1]
-    csr_ops = [(f"P0 {lv0.P.shape[0]}x{lv0.P.shape[1]}", lv0.P),
-               (f"R0 {lv0.R.shape[0]}x{lv0.R.shape[1]}", lv0.R),
-               (f"A1 {lv1.A.shape[0]}x{lv1.A.shape[1]}", lv1.A)]
+    for E in (lv0.P, lv0.R, lv1.A):
+        check(E.data is not None, f"{E.shape} has no CSR remainder")
     for dt in (torch.float64, torch.float32):
-        dia = A.dia_data.to(dt)
-        offs = A.dia_offsets
-        n = A.shape[0]
-        compare("dia_spmv", f"A0 {n}x{n} D={len(offs)}", dt,
-                lambda x: dia_spmv(dia, offs, x, n),
-                lambda x: dia_spmv_plain(dia, offs, x, n), n)
-        for shape_name, E in csr_ops:
-            check(E.data is not None, f"{shape_name} has no CSR remainder")
-            data = E.data.to(dt)
-            nr, nc = E.shape
-            compare("csr_spmv", f"{shape_name} nnz={E.data.numel()}", dt,
-                    lambda x: csr_spmv(E.indptr, E.indices, data, x, nr,
-                                       E.group),
-                    lambda x: csr_spmv_plain(E.indptr, E.indices, data, x,
-                                             nr), nc)
-    report["kernel_checks"] = rows
+        checks.matrix(f"A0 {A.shape[0]}x{A.shape[1]}", A, dt)
+        for shape_name, E in ((f"P0 {lv0.P.shape[0]}x{lv0.P.shape[1]}",
+                               lv0.P),
+                              (f"R0 {lv0.R.shape[0]}x{lv0.R.shape[1]}",
+                               lv0.R),
+                              (f"A1 {lv1.A.shape[0]}x{lv1.A.shape[1]}",
+                               lv1.A)):
+            checks.matrix(shape_name, E, dt)
+    report["kernel_checks"] = checks.rows
     del state, A
     torch.cuda.empty_cache()
 
@@ -286,15 +405,17 @@ def profile_solve(drv):
     # device-side events, less the record_function spans mirrored there
     kern = [e for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA
-            and not e.key.startswith(("hypredrv::", "amg_L"))]
+            and not e.key.startswith(("hypredrv::", "amg_L", "mgr_L"))]
     busy = sum(dev_us(e) for e in kern) / 1e6
+    n_dev = sum(e.count for e in kern)
     top = [{"name": e.key[:80], "ms": dev_us(e) / 1e3, "count": e.count}
            for e in sorted(kern, key=dev_us, reverse=True)[:8]]
     print(f"  profiled solve: wall {wall:.4f} s, device busy {busy:.4f} s "
-          f"({100 * busy / wall:.1f}%)")
+          f"({100 * busy / wall:.1f}%), {n_dev} device items")
     for t in top:
         print(f"    {t['ms']:9.3f} ms  x{t['count']:5d}  {t['name']}")
-    return {"wall_s": wall, "device_busy_s": busy, "top": top}
+    return {"wall_s": wall, "device_busy_s": busy, "device_items": n_dev,
+            "top": top}
 
 
 def phase_64(report):
@@ -328,6 +449,190 @@ def phase_128(report):
     check(dev <= 1e-6, f"128^3: history deviates from JAX by {dev:.3e}")
 
 
+def run_example(report, key, name, golden, rtol=1e-6):
+    """An example config through the CLI on the card (float64)."""
+    from hypredrive_tpu_torch import cli
+
+    collect = []
+    rc = cli.run_one_config(os.path.join("examples", name),
+                            overrides=[("general:print_config_params",
+                                        "off")],
+                            collect=collect)
+    check(rc == 0, f"{name}: cli returned {rc}")
+    (e,) = collect[0].stats.entries
+    report[key] = {"iters": e.iters, "rel_res_norm": e.rel_res_norm,
+                   "setup_s": e.setup_time, "solve_s": e.solve_time}
+    print(f"{name}: {e.iters} iterations, rel res {e.rel_res_norm:.3e}, "
+          f"setup {e.setup_time:.4f} s, solve {e.solve_time:.4f} s")
+    check(e.iters == golden, f"{name}: {e.iters} iterations, expected "
+                             f"{golden}")
+    check(e.converged and e.rel_res_norm <= rtol,
+          f"{name}: relative residual {e.rel_res_norm:.3e} > {rtol}")
+
+
+def phase_mgr_ex3(report):
+    run_example(report, "mgr_ex3", "ex3.yml", GOLDEN_EX3_ITERS)
+
+
+def phase_mgr_ex5(report):
+    run_example(report, "mgr_ex5", "ex5.yml", GOLDEN_EX3_ITERS)
+
+
+def phase_jacobi_ex1(report):
+    run_example(report, "jacobi_ex1", "ex1-jacobi.yml",
+                GOLDEN_EX1_JACOBI_ITERS)
+
+
+def mgr_driver(A, dofmap, solver, policy="device"):
+    """GMRES-family + ex3's MGR on (A, dofmap) through the library API,
+    b = ones, x0 = 0, float64; set up, not yet solved."""
+    import numpy as np
+    from hypredrive_tpu_torch import HypreDrive
+
+    drv = HypreDrive()
+    drv.set_library_mode()
+    drv.input_args_from_dict({"general": {"exec_policy": policy},
+                              "linear_system": {}, "solver": solver,
+                              "preconditioner": EX3_MGR})
+    drv.set_matrix_from_csr(A.indptr, A.indices, A.data)
+    drv.set_dofmap(dofmap)
+    drv.set_rhs(np.ones(A.shape[0]))
+    drv.precon_create()
+    drv.linear_solver_create()
+    drv.linear_solver_setup()
+    return drv
+
+
+def phase_mgr64(report):
+    """nx = 64 multiphysics, GMRES(30) + MGR, against the JAX package."""
+    import numpy as np
+    import torch
+    from hypredrive_tpu_torch.ops.csr import multiphysics_fv_system
+    from hypredrive_tpu_torch.ops.csr_spmv import csr_spmv
+    from hypredrive_tpu_torch.ops.dia_spmv import dia_spmv
+
+    t0 = time.perf_counter()
+    A, dofmap = multiphysics_fv_system(64, 3, contrast=0.3, coupling=0.12,
+                                       convection=0.08)
+    gen_s = time.perf_counter() - t0
+    check(A.shape[0] == 786432 and A.nnz == 6742016,
+          f"mgr_64: {A.shape[0]} rows / {A.nnz} nnz")
+    t0 = time.perf_counter()
+    drv = mgr_driver(A, dofmap, "gmres")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    print(f"mgr_64: host setup (MGR + coarsest AMG) and upload "
+          f"{setup_s:.3f} s")
+    state = drv.precon.state
+    coarsest = tuple(lv.A.shape[0] for lv in state.coarsest_state.levels)
+    res = drv.linear_solver_apply()
+    x = drv.get_solution()
+    host_rel = float(np.linalg.norm(1.0 - A @ x) / np.sqrt(A.shape[0]))
+    hist = [float(h) for h in res.res_history[:res.iters + 1]]
+    k = min(len(hist), len(JAX_HISTORY_MGR64))
+    dev = max(abs(a / b - 1) for a, b in zip(hist[:k],
+                                              JAX_HISTORY_MGR64[:k]))
+    out = report["mgr_64"] = {
+        "rows": A.shape[0], "nnz": A.nnz,
+        "mgr_level_rows": [lv.A.shape[0] for lv in state.levels],
+        "coarsest_amg_level_rows": list(coarsest),
+        "iters": res.iters, "rel_res_norm": res.rel_res_norm,
+        "host_rel_res": host_rel, "converged": res.converged,
+        "generate_s": gen_s, "setup_s": setup_s,
+        "solve_s": res.solve_time, "history": hist,
+        "history_rel_dev_vs_jax": dev}
+    print(f"mgr_64: {A.shape[0]} rows, {A.nnz} nnz, MGR levels "
+          f"{out['mgr_level_rows']}, coarsest AMG levels {list(coarsest)}; "
+          f"generate {gen_s:.3f} s, setup (host MGR + AMG + upload) "
+          f"{setup_s:.3f} s; {res.iters} iterations, rel res "
+          f"{res.rel_res_norm:.3e} (host {host_rel:.3e}), first solve "
+          f"{res.solve_time:.4f} s; history vs the JAX package: max rel "
+          f"dev {dev:.3e}")
+    drv.reset_initial_guess()
+    n0 = dia_spmv.launches + csr_spmv.launches
+    warm = drv.linear_solver_apply()
+    out["solve_warm_s"] = warm.solve_time
+    out["kernel_launches_per_iter"] = (
+        (dia_spmv.launches + csr_spmv.launches - n0) / max(1, warm.iters))
+    print(f"  second solve: {warm.solve_time:.4f} s, "
+          f"{out['kernel_launches_per_iter']:.1f} DIA+CSR launches per "
+          f"GMRES iteration")
+    prof = out["profile"] = profile_solve(drv)
+    out["device_items_per_iter"] = prof["device_items"] / max(1, warm.iters)
+    print(f"  {out['device_items_per_iter']:.1f} device items per GMRES "
+          f"iteration")
+    KEEP["mgr64_state"] = state
+    drv.destroy()
+    check(res.iters == JAX_ITERS_MGR64,
+          f"mgr_64: {res.iters} iterations, JAX package {JAX_ITERS_MGR64}")
+    check(coarsest == JAX_COARSEST_LEVELS_MGR64,
+          f"mgr_64: coarsest AMG levels {coarsest}, JAX package "
+          f"{JAX_COARSEST_LEVELS_MGR64}")
+    # same recurrences, other summation orders (float64)
+    check(dev <= 1e-6, f"mgr_64: history deviates from JAX by {dev:.3e}")
+    check(res.converged and res.rel_res_norm <= 1e-6 and host_rel <= 1e-6,
+          f"mgr_64: true rel res {res.rel_res_norm:.3e} (host "
+          f"{host_rel:.3e}) > 1e-6")
+    check(np.all(np.isfinite(x)) and x.shape == (A.shape[0],),
+          "mgr_64: solution not finite or of the wrong shape")
+
+
+def phase_krylov_variants(report):
+    """FGMRES and BiCGSTAB + MGR on data/multiphys2k, dofmap from file."""
+    from hypredrive_tpu_torch.io import ij
+
+    base = os.path.join("data", "multiphys2k", "np1")
+    A, _ = ij.read_matrix_auto(os.path.join(base, "IJ.out.A"))
+    dofmap = ij.read_dofmap_auto(os.path.join(base, "dofmap.out"))
+    out = report["krylov_variants"] = {}
+    for solver, golden in (("fgmres", 9), ("bicgstab", 6)):
+        drv = mgr_driver(A, dofmap, solver)
+        res = drv.linear_solver_apply()
+        drv.destroy()
+        out[solver] = {"iters": res.iters, "rel_res_norm": res.rel_res_norm,
+                       "solve_s": res.solve_time}
+        print(f"{solver} + MGR on multiphys2k: {res.iters} iterations, rel "
+              f"res {res.rel_res_norm:.3e}, solve {res.solve_time:.4f} s")
+        check(res.iters == golden,
+              f"{solver} + MGR: {res.iters} iterations, expected {golden}")
+        check(res.converged and res.rel_res_norm <= 1e-6,
+              f"{solver} + MGR: rel res {res.rel_res_norm:.3e} > 1e-6")
+
+
+def phase_mgr_kernels(report):
+    """Each kernel against its plain version at mgr_64's MGR shapes, with
+    the CSR kernel's lanes per row swept on P0 and R0."""
+    import torch
+    from hypredrive_tpu_torch.ops.csr_spmv import csr_spmv
+
+    state = KEEP.pop("mgr64_state")
+    lv0, lv1 = state.levels
+    A_c = state.coarsest_state.levels[0].A
+    checks = KernelChecks()
+    for shape_name, E in (
+            (f"MGR P0 {lv0.P.shape[0]}x{lv0.P.shape[1]}", lv0.P),
+            (f"MGR R0 {lv0.R.shape[0]}x{lv0.R.shape[1]}", lv0.R),
+            (f"MGR A1 {lv1.A.shape[0]}x{lv1.A.shape[1]}", lv1.A),
+            (f"MGR coarsest A {A_c.shape[0]}x{A_c.shape[1]}", A_c)):
+        checks.matrix(shape_name, E, torch.float64)
+    sweep = []
+    for shape_name, E in (("MGR P0", lv0.P), ("MGR R0", lv0.R)):
+        x = torch.ones(E.shape[1], dtype=torch.float64, device="cuda")
+        nr = E.shape[0]
+        for g in (2, 4, 8, 16, 32):
+            ms = device_ms(lambda: csr_spmv(E.indptr, E.indices, E.data, x,
+                                            nr, g))
+            sweep.append({"shape": shape_name, "group": g, "device_ms": ms,
+                          "chosen": g == E.group,
+                          "mean_row_nnz": E.data.numel() / nr})
+            print(f"  csr_spmv {shape_name} lanes/row {g:2d}: device "
+                  f"{ms:.4f} ms{'  (chosen)' if g == E.group else ''}")
+    report["kernel_checks"].extend(checks.rows)
+    report["csr_group_sweep"] = sweep
+    del state
+    torch.cuda.empty_cache()
+
+
 KERNELS = {
     "dia_spmv": ("hypredrive_tpu_torch/csrc/dia_spmv.cu",
                  "hypredrive_tpu/ops/pallas_dia.py:99 (K1); "
@@ -336,6 +641,17 @@ KERNELS = {
                  "hypredrive_tpu/ops/pallas_spmv.py:85 (K3); "
                  "hypredrive_tpu/ops/pallas_spmv.py:216 (K4)"),
 }
+
+
+# the solve paths: (name, phase, kernels each must launch); ex1-jacobi is
+# a 7-point Laplacian without AMG, all on diagonals
+BOTH = ("dia_spmv", "csr_spmv")
+PATHS = (("ex1", phase_ex1, BOTH), ("lap64", phase_64, BOTH),
+         ("lap128", phase_128, BOTH), ("mgr_ex3", phase_mgr_ex3, BOTH),
+         ("mgr_ex5", phase_mgr_ex5, BOTH),
+         ("jacobi_ex1", phase_jacobi_ex1, ("dia_spmv",)),
+         ("mgr_64", phase_mgr64, BOTH),
+         ("krylov_variants", phase_krylov_variants, BOTH))
 
 
 def main() -> int:
@@ -366,18 +682,26 @@ def main() -> int:
     run("env", phase_env)
     if not failures:
         run("kernels", phase_kernels)
-        dia_spmv.launches = 0
-        csr_spmv.launches = 0
-        run("ex1", phase_ex1)
-        run("lap64", phase_64)
-        run("lap128", phase_128)
-        launches = {"dia_spmv": dia_spmv.launches,
-                    "csr_spmv": csr_spmv.launches}
+        launches = {"dia_spmv": 0, "csr_spmv": 0}
+        for name, fn, kernels_run in PATHS:
+            # each path's own count: zeroed just before, read just after
+            dia_spmv.launches = 0
+            csr_spmv.launches = 0
+            run(name, fn)
+            counts = {"dia_spmv": dia_spmv.launches,
+                      "csr_spmv": csr_spmv.launches}
+            report.setdefault("launches_by_path", {})[name] = counts
+            print(f"{name} kernel launches: {counts}")
+            for k in kernels_run:
+                launches[k] += counts[k]
+                if counts[k] <= 0:
+                    failures.append(f"launches: {name} never launched {k}")
         report["launches"] = launches
         print(f"main-path kernel launches: {launches}")
-        for name, n in launches.items():
-            if n <= 0:
-                failures.append(f"launches: {name} never launched")
+        if "mgr64_state" in KEEP:
+            run("mgr_kernels", phase_mgr_kernels)
+        else:
+            failures.append("mgr_kernels: no mgr_64 hierarchy to check")
     report["total_s"] = time.perf_counter() - t_start
     report["failures"] = failures
     os.makedirs("build", exist_ok=True)
@@ -399,6 +723,11 @@ def main() -> int:
             "max_rel_err": max(r["max_rel_err"] for r in rows),
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
             "shape": f"{main_row['shape']} {main_row['dtype']}",
+            "shapes": [{k: r[k] for k in ("shape", "dtype", "ms",
+                                          "plain_ms", "device_ms",
+                                          "plain_device_ms", "max_rel_err",
+                                          "tb_s")}
+                       for r in rows],
         })
     print(json.dumps({"kernels": table}))
     print(report["nvidia_smi"])

@@ -122,6 +122,16 @@ class HypreDrive:
     def set_initial_guess(self, values):
         self._require_system().set_x0_array(np.asarray(values))
 
+    def set_dofmap(self, labels):
+        """ref: HYPREDRV_LinearSystemSetDofmap (include/HYPREDRV.h:1128)."""
+        self._require_system().set_dofmap(np.asarray(labels, dtype=np.int64))
+
+    def set_interleaved_dofmap(self, num_functions: int):
+        """Labels cycle 0..ndof-1 per row (ref: HYPREDRV.h:1160 +
+        IntArrayBuildInterleaved, containers.h:44)."""
+        n = self._require_system().num_rows
+        self.set_dofmap(np.arange(n, dtype=np.int64) % int(num_functions))
+
     def reset_initial_guess(self):
         """x ← x0 (ref: HYPREDRV_LinearSystemResetInitialGuess)."""
         self._require_system().reset_initial_guess()

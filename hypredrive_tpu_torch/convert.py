@@ -1,11 +1,13 @@
 """Carry the JAX package's objects across to this package, as numpy arrays.
 
-Used by the parity tests: with the same matrix or the same whole AMG
-hierarchy on both sides, the two packages' device code can be compared
-without any difference from setup.  The argument objects are duck-typed
-(``hypredrive_tpu.ops.device_matrix.EllMatrix``,
-``hypredrive_tpu.precon.amg.hierarchy.AMGState``); this module imports
-neither JAX nor the JAX package.
+Used by the parity tests: with the same matrix, the same whole AMG
+hierarchy or the same MGR setup on both sides, the two packages' device
+code can be compared without any difference from setup.  The argument
+objects are duck-typed (``hypredrive_tpu.ops.device_matrix.EllMatrix``,
+``hypredrive_tpu.precon.amg.hierarchy.AMGState``,
+``hypredrive_tpu.precon.mgr.MGRState`` and the component states of
+``hypredrive_tpu.precon.components``); this module imports neither JAX
+nor the JAX package.
 """
 
 from __future__ import annotations
@@ -60,3 +62,68 @@ def amg_state(state, dtype: torch.dtype = torch.float64,
         coarse_inv=torch.tensor(np.array(state.coarse_inv), dtype=dtype,
                                 device=device),
         cycle_type=int(state.cycle_type), max_iter=int(state.max_iter))
+
+
+def component_state(kind: str, state, dtype: torch.dtype = torch.float64,
+                    device: torch.device = torch.device("cpu")):
+    """One of the JAX package's MGR component states (``precon/
+    components.py``) as this package's, by kind."""
+    def vec(a):
+        return torch.tensor(np.array(a), dtype=dtype, device=device)
+
+    if kind == "none" or state is None:
+        return None
+    if kind in ("jacobi", "l1-jacobi"):
+        d_inv, sweeps, A = state
+        return (vec(d_inv), int(sweeps), ell_matrix(A, dtype, device))
+    if kind == "chebyshev":
+        A, d_inv, theta, delta, rhos = state
+        return (ell_matrix(A, dtype, device), vec(d_inv),
+                float(np.asarray(theta)), float(np.asarray(delta)),
+                tuple(float(r) for r in np.asarray(rhos)))
+    if kind == "amg":
+        return amg_state(state, dtype, device)
+    if kind == "dense":
+        return vec(state)
+    if kind == "krylov":
+        from .precon.components import KrylovComponent
+
+        return KrylovComponent(
+            A=ell_matrix(state.A, dtype, device), pc_kind=state.pc_kind,
+            pc_state=component_state(state.pc_kind, state.pc_state, dtype,
+                                     device),
+            method=state.method, max_iter=int(state.max_iter),
+            krylov_dim=int(state.krylov_dim), rtol=float(state.rtol))
+    if kind == "mgr":
+        return mgr_state(state, dtype, device)
+    raise ValueError(f"component kind '{kind}' has no counterpart here")
+
+
+def mgr_state(state, dtype: torch.dtype = torch.float64,
+              device: torch.device = torch.device("cpu")):
+    """The JAX package's single-device MGRState as this package's: every
+    level's A, P and R through :func:`ell_matrix`, the F/C indices as
+    int64, the components by kind."""
+    from .precon.mgr import MGRLevel, MGRState
+
+    def idx(a):
+        return torch.tensor(np.array(a), dtype=torch.int64, device=device)
+
+    levels = tuple(
+        MGRLevel(A=ell_matrix(lv.A, dtype, device), f_idx=idx(lv.f_idx),
+                 c_idx=idx(lv.c_idx), P=ell_matrix(lv.P, dtype, device),
+                 R=ell_matrix(lv.R, dtype, device),
+                 f_state=component_state(lv.f_kind, lv.f_state, dtype,
+                                         device),
+                 g_state=component_state(lv.g_kind, lv.g_state, dtype,
+                                         device),
+                 f_kind=lv.f_kind, g_kind=lv.g_kind,
+                 f_sweeps=int(lv.f_sweeps), pre=bool(lv.pre),
+                 post=bool(lv.post))
+        for lv in state.levels)
+    return MGRState(
+        levels=levels,
+        coarsest_state=component_state(state.coarsest_kind,
+                                       state.coarsest_state, dtype, device),
+        coarsest_kind=state.coarsest_kind, cycle_type=int(state.cycle_type),
+        max_iter=int(state.max_iter))

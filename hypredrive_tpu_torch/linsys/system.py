@@ -3,8 +3,9 @@
 Counterpart of ``hypredrive_tpu/linsys/system.py`` (ref:
 src/internal/linsys.c: ReadMatrix :1123, RHS modes :1779-1842, init-guess
 modes :376-382, filename resolution :833-866) for the inputs the port
-covers: IJ files and generated Laplacians, ``rhs_mode``, ``x0`` and the
-solve dtype (float64 by default).
+covers: IJ files, generated Laplacians, elasticity and multiphysics
+systems, dofmaps (``dofmap_filename``/``dofmap_basename``, ``dof_labels``),
+``rhs_mode``, ``x0`` and the solve dtype (float64 by default).
 
 Device rule: ``exec_policy: host`` (general or linear_system) selects the
 CPU; the default ``device`` selects CUDA and raises a typed error when
@@ -90,6 +91,8 @@ class LinearSystem:
         self.b = None
         self.x = None
         self.x0 = None
+        self.dofmap: Optional[np.ndarray] = None   # per-row dof labels
+        self.dof_labels = {}                       # symbolic name → label
         self.ls_id = 0
 
     @property
@@ -112,13 +115,13 @@ class LinearSystem:
         ls = input_args.linear_system
         general = input_args.general
         for key in ("sequence_filename", "precmat_filename",
-                    "precmat_basename", "xref_filename", "dofmap_filename",
-                    "dofmap_basename"):
+                    "precmat_basename", "xref_filename"):
             if ls.get(key):
                 raise _not_ported(key)
         self = cls(dtype=resolve_dtype(general),
                    device=resolve_device(general, ls))
         self.ls_id = ls_id
+        self.dof_labels = dict(ls.get("dof_labels") or {})
 
         if stats:
             stats.annotate_begin("matrix")
@@ -135,13 +138,27 @@ class LinearSystem:
             if stats:
                 stats.annotate_end("rhs")
         self._build_x0(ls, ls_id, previous)
+
+        if ls.get("dofmap_filename") or ls.get("dofmap_basename"):
+            if stats:
+                stats.annotate_begin("dofmap")
+            try:
+                path = resolve_filename(ls, ls_id, ls.dofmap_filename,
+                                        ls.dofmap_basename)
+                self.dofmap = ij_io.read_dofmap_auto(path)
+            finally:
+                if stats:
+                    stats.annotate_end("dofmap")
+
         self.reset_initial_guess()
         return self
 
     def _build_matrix(self, ls, ls_id: int):
         gen = ls.get("generate")
         if gen and gen.get("kind"):
-            self.A_host = _generate_matrix(gen)
+            self.A_host, dofmap = _generate_matrix(gen)
+            if dofmap is not None:
+                self.dofmap = dofmap
         else:
             path = resolve_filename(ls, ls_id, ls.matrix_filename,
                                     ls.matrix_basename)
@@ -235,6 +252,9 @@ class LinearSystem:
         self.x0 = self._vec(values)
         self.x = self.x0
 
+    def set_dofmap(self, dofmap: np.ndarray):
+        self.dofmap = np.asarray(dofmap)
+
     def reset_initial_guess(self):
         """x ← x0 (ref: HYPREDRV_LinearSystemResetInitialGuess)."""
         self.x = self.x0
@@ -243,19 +263,25 @@ class LinearSystem:
         return self.x.cpu().numpy()
 
 
-def _generate_matrix(gen) -> sp.csr_matrix:
-    """Deterministic in-memory Laplacians (the JAX package's generator)."""
+def _generate_matrix(gen):
+    """Deterministic in-memory systems (the JAX package's generator):
+    (A, dofmap or None)."""
     kind = gen.get("kind", "")
     nx = int(gen.get("nx", 10))
     ny = int(gen.get("ny", 0)) or None
     nz = int(gen.get("nz", 0)) or None
     if kind in ("laplacian_7pt", "laplacian", "ps3d10pt7"):
-        return csr_ops.laplacian_3d_7pt(nx, ny, nz)
+        return csr_ops.laplacian_3d_7pt(nx, ny, nz), None
     if kind == "laplacian_27pt":
-        return csr_ops.laplacian_3d_27pt(nx, ny, nz)
+        return csr_ops.laplacian_3d_27pt(nx, ny, nz), None
     if kind in ("laplacian_5pt", "laplacian_2d"):
-        return csr_ops.laplacian_2d_5pt(nx, ny)
-    if kind in ("elasticity", "multiphysics"):
-        raise _not_ported(f"generate.kind '{kind}'")
+        return csr_ops.laplacian_2d_5pt(nx, ny), None
+    if kind == "elasticity":
+        A, _coords = csr_ops.elasticity_3d(nx, ny, nz)
+        return A, (np.arange(A.shape[0]) % 3).astype(np.int64)
+    if kind == "multiphysics":
+        return csr_ops.multiphysics_block_system(
+            int(gen.get("ncell", 100)), int(gen.get("ndof", 3)),
+            int(gen.get("seed", 7)))
     raise HypredrvError(f"unknown generate.kind '{kind}'",
                         ErrorCode.INVALID_VAL)

@@ -1,4 +1,5 @@
-"""Preconditioners: AMG (BoomerAMG-equivalent) and none.
+"""Preconditioners: AMG (BoomerAMG-equivalent), MGR, (ℓ1-)Jacobi,
+hybrid Gauss-Seidel, Chebyshev and none.
 
 Reference equivalent: precon create/setup/apply dispatch
 (ref: src/internal/precon.c:461-563).

@@ -188,11 +188,15 @@ def _check_ported(amg_args) -> Tuple[str, str]:
 def setup_hierarchy(A_host: sp.csr_matrix, amg_args,
                     dtype: torch.dtype = torch.float64,
                     device: torch.device = torch.device("cpu"),
-                    fine_matrix: Optional[EllMatrix] = None) -> AMGState:
+                    fine_matrix: Optional[EllMatrix] = None,
+                    dof_func: Optional[np.ndarray] = None) -> AMGState:
     """Build the multigrid hierarchy from the AMG config Args (schema:
     config/sections.py AMG_SCHEMA; ref arg structs amg.h:23-123) and upload
     it to ``device``.  ``fine_matrix`` is reused as the finest level's A
-    when it has the right dtype and device."""
+    when it has the right dtype and device.  ``dof_func`` (per-row dof
+    labels) restricts strong connections to one function when
+    ``coarsening.num_functions`` > 1, and follows the C points down the
+    levels."""
     kind, up_kind = _check_ported(amg_args)
     device = torch.device(device)
     if fine_matrix is not None and (fine_matrix.dtype != dtype
@@ -212,6 +216,7 @@ def setup_hierarchy(A_host: sp.csr_matrix, amg_args,
     pre = int(rlx.down_sweeps) if int(rlx.down_sweeps) >= 0 else num_sweeps
     post = int(rlx.up_sweeps) if int(rlx.up_sweeps) >= 0 else num_sweeps
     weight = float(rlx.weight)
+    num_functions = int(csn.num_functions)
 
     def smoothers(A_l):
         sm = _smoother_arrays(kind, A_l, dtype, device, rlx.chebyshev,
@@ -223,13 +228,14 @@ def setup_hierarchy(A_host: sp.csr_matrix, amg_args,
 
     levels: List[AMGLevel] = []
     A_l = sp.csr_matrix(A_host)
+    func_l = dof_func if num_functions > 1 else None
     n_real = A_l.shape[0]   # unpadded level size (pad rows do not count
                             # toward the min/max_coarse termination checks)
     for lvl in range(max_levels - 1):
         if n_real <= max_coarse or (min_coarse and n_real <= min_coarse):
             break
         n = A_l.shape[0]
-        S = strength_graph(A_l, theta=theta, sabs=sabs)
+        S = strength_graph(A_l, theta=theta, sabs=sabs, dof_func=func_l)
         if S.nnz == 0:
             break
         cf = coarsen(S, ctype=int(csn.type), seed=lvl + seed_base)
@@ -259,6 +265,12 @@ def setup_hierarchy(A_host: sp.csr_matrix, amg_args,
             pre_sweeps=pre, post_sweeps=post,
             up_smoother=up_k, up_arrays=up_sm,
         ))
+        if func_l is not None:
+            # the coarse level's functions are its C points' (pad rows 0)
+            func_l = func_l[cf > 0]
+            if npad_c > nC_real:
+                func_l = np.concatenate(
+                    [func_l, np.zeros(npad_c - nC_real, func_l.dtype)])
         A_l = A_c
         n_real = nC_real
         if nC_real <= max_coarse:

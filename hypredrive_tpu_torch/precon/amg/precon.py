@@ -7,6 +7,7 @@ apply runs V/W cycles there.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..base import Preconditioner
@@ -21,9 +22,13 @@ class AMGPrecon(Preconditioner):
     def setup(self, system):
         A_host = system.A_host if system.A_host is not None \
             else system.A.to_csr()
+        dof_func = None
+        if int(self.args.coarsening.num_functions) > 1 \
+                and system.dofmap is not None:
+            dof_func = np.asarray(system.dofmap)
         self.state = setup_hierarchy(A_host, self.args, dtype=system.dtype,
                                      device=system.device,
-                                     fine_matrix=system.A)
+                                     fine_matrix=system.A, dof_func=dof_func)
         log(2, hierarchy_summary(self.state))
         self.is_setup = True
 

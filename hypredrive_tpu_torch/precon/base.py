@@ -37,15 +37,33 @@ class NonePrecon(Preconditioner):
     method = "none"
 
 
+# preconditioners of the JAX package this package has not ported yet
+NOT_PORTED = ("ilu", "fsai", "schwarz", "ams", "ads")
+
+
 def create_precon(precon_config, input_args=None) -> Preconditioner:
     """ref: hypredrv_PreconCreate dispatch (precon.c:461-563)."""
     from .amg import AMGPrecon
+    from .chebyshev import ChebyshevPrecon
+    from .jacobi import GaussSeidelPrecon, JacobiPrecon
+    from .mgr import MGRPrecon
 
-    registry = {"none": NonePrecon, "amg": AMGPrecon}
-    cls = registry.get(precon_config.method)
+    registry = {
+        "none": NonePrecon,
+        "jacobi": JacobiPrecon,
+        "gauss-seidel": GaussSeidelPrecon,
+        "chebyshev": ChebyshevPrecon,
+        "amg": AMGPrecon,
+        "mgr": MGRPrecon,
+    }
+    method = precon_config.method
+    cls = registry.get(method)
     if cls is None:
-        raise HypredrvError(
-            f"preconditioner '{precon_config.method}' is not yet ported to "
-            "hypredrive_tpu_torch (available: amg, none)",
-            ErrorCode.NOT_IMPLEMENTED)
+        if method in NOT_PORTED:
+            raise HypredrvError(
+                f"preconditioner '{method}' is not yet ported to "
+                f"hypredrive_tpu_torch (available: {', '.join(registry)})",
+                ErrorCode.NOT_IMPLEMENTED)
+        raise HypredrvError(f"preconditioner '{method}' not implemented",
+                            ErrorCode.INVALID_PRECON)
     return cls(precon_config.args, input_args)

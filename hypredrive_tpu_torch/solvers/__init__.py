@@ -1,4 +1,4 @@
-"""Krylov solvers: PCG (the others are not ported yet).
+"""Krylov solvers: PCG, GMRES, FGMRES and BiCGSTAB.
 
 Reference equivalent: the solver vtable dispatch (ref: src/internal/
 solver.c:104-125).

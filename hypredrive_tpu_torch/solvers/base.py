@@ -102,13 +102,19 @@ class Solver:
 
 def create_solver(solver_config, input_args=None) -> Solver:
     """ref: solver vtable dispatch (solver.c:104-125, :417)."""
+    from .bicgstab import BiCGSTABSolver
+    from .fgmres import FGMRESSolver
+    from .gmres import GMRESSolver
     from .pcg import PCGSolver
 
-    registry = {"pcg": PCGSolver}
+    registry = {
+        "pcg": PCGSolver,
+        "gmres": GMRESSolver,
+        "fgmres": FGMRESSolver,
+        "bicgstab": BiCGSTABSolver,
+    }
     cls = registry.get(solver_config.method)
     if cls is None:
-        raise HypredrvError(
-            f"solver '{solver_config.method}' is not yet ported to "
-            "hypredrive_tpu_torch (available: pcg)",
-            ErrorCode.NOT_IMPLEMENTED)
+        raise HypredrvError(f"unknown solver {solver_config.method}",
+                            ErrorCode.INVALID_SOLVER)
     return cls(solver_config.args, input_args)

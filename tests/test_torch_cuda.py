@@ -123,3 +123,63 @@ def _ex1_options():
         "matrix_filename": "data/ps3d10pt7/np1/IJ.out.A",
         "rhs_filename": "data/ps3d10pt7/np1/IJ.out.b"},
         "solver": "pcg", "preconditioner": "amg"}
+
+
+def _multiphys2k():
+    from hypredrive_tpu_torch.io import ij
+
+    base = os.path.join(REPO, "data", "multiphys2k", "np1")
+    A, _ = ij.read_matrix_auto(os.path.join(base, "IJ.out.A"))
+    return A, ij.read_dofmap_auto(os.path.join(base, "dofmap.out"))
+
+
+EX3_MGR = {"level": {0: {"f_dofs": [2], "prolongation_type": "jacobi"},
+                     1: {"f_dofs": [1], "g_relaxation": "l1-hsgs",
+                         "restriction_type": "columped"}},
+           "coarsest_level": "amg"}
+
+
+@pytest.mark.parametrize("cycle", ["v", "w(1,1)"])
+def test_mgr_apply_on_card_matches_cpu(dev, cycle):
+    """ex3's MGR set up for the card and for the CPU: one cycle on the
+    same vector agrees to float64 rounding (rel 1e-12)."""
+    from hypredrive_tpu_torch.config.sections import MGR_SCHEMA
+    from hypredrive_tpu_torch.precon.mgr import mgr_apply, setup_mgr
+
+    A, dofmap = _multiphys2k()
+    args = MGR_SCHEMA.parse(dict(EX3_MGR, cycle=cycle), "mgr", [])
+    st_gpu = setup_mgr(A, args, dofmap, torch.float64, device=dev)
+    st_cpu = setup_mgr(A, args, dofmap, torch.float64)
+    r = np.random.default_rng(6).standard_normal(A.shape[0])
+    n_dia, n_csr = dia_spmv.launches, csr_spmv.launches
+    z = mgr_apply(st_gpu, torch.tensor(r, device=dev)).cpu()
+    assert dia_spmv.launches > n_dia and csr_spmv.launches > n_csr
+    assert _close(z, mgr_apply(st_cpu, torch.tensor(r)), torch.float64)
+
+
+@pytest.mark.parametrize("solver,iters", [("gmres", 9), ("fgmres", 9),
+                                          ("bicgstab", 6)])
+def test_krylov_mgr_on_card_matches_cpu(dev, solver, iters):
+    """ex3's system and MGR under each Krylov method, on the card and on
+    the CPU: equal counts, GMRES-family histories to rel 1e-8."""
+    A, dofmap = _multiphys2k()
+    out = []
+    for policy in ("device", "host"):
+        drv = hypredrive_tpu_torch.HypreDrive()
+        drv.set_library_mode()
+        drv.input_args_from_dict({"general": {"exec_policy": policy},
+                                  "linear_system": {}, "solver": solver,
+                                  "preconditioner": {"mgr": EX3_MGR}})
+        drv.set_matrix_from_csr(A.indptr, A.indices, A.data)
+        drv.set_dofmap(dofmap)
+        drv.set_rhs(np.ones(A.shape[0]))
+        drv.precon_create()
+        drv.linear_solver_create()
+        drv.linear_solver_setup()
+        out.append(drv.linear_solver_apply())
+    gpu, cpu = out
+    assert gpu.iters == cpu.iters == iters
+    assert gpu.rel_res_norm <= 1e-6
+    if solver != "bicgstab":   # BiCGSTAB's history is chaotic here
+        np.testing.assert_allclose(gpu.res_history[:iters + 1],
+                                   cpu.res_history[:iters + 1], rtol=1e-8)

@@ -134,7 +134,7 @@ def test_default_policy_needs_cuda():
         hypredrive_tpu_torch.solve(options=opts)
 
 
-@pytest.mark.parametrize("section,value", [("solver", "gmres"),
+@pytest.mark.parametrize("section,value", [("preconditioner", "fsai"),
                                            ("preconditioner", "ilu")])
 def test_unported_methods_raise(section, value):
     opts = {"general": {"exec_policy": "host"},
