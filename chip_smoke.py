@@ -32,10 +32,31 @@ Phases (any failure exits non-zero and prints no result line):
      package's iteration count and GMRES residual history (rel 1e-6), true
      relative residual ≤ 1e-6;
    - krylov_variants: FGMRES + MGR (9) and BiCGSTAB + MGR (6) on
-     data/multiphys2k through the driver API, dofmap from its file.
+     data/multiphys2k through the driver API, dofmap from its file;
+   - mgr_ex4: examples/ex4.yml (GMRES + MGR with an ILU global relaxation
+     and a hybrid-GS coarsest AMG) through the CLI;
+   - seq_ex7 / seq_ex7_reuse / seq_ex7_frelax_reuse: the eight-system
+     poroseq sequence through the CLI (FGMRES + MGR, ILU G-relaxation,
+     nested-AMG F-relaxation), without reuse, with per-timestep reuse and
+     with static frequency-2 reuse; every entry within ±1 iteration of the
+     JAX package's count, and the reused entries setting up in under 0.2×
+     the mean of the rebuilt ones;
+   - amg_gs_fsai: examples/ex2.yml (hybrid GS + the FSAI complex smoother)
+     and ex8.yml (five AMG variants) through the CLI;
+   - ilu_variants: GMRES on data/multiphys2k with the standalone ILU types
+     bj-ilu0, bj-ilut, gmres-iluk, nsh-iluk and ras-iluk and with additive
+     Schwarz, against the JAX package's counts;
+   - seq_64: two timesteps of two Newton systems at nx = 64 (786,432 rows
+     each, built in memory), FGMRES + ex7-reuse's MGR with per-timestep
+     reuse through the library API: the JAX package's counts ±1, true
+     relative residuals ≤ 1.02e-6, setup skipped on the reused systems,
+     the host setup of each rebuild split into ILU(0), nested AMG and the
+     rest of MGR, first and warm solve, and the device busy share of a
+     reused solve.
 4. Kernels against their plain versions at the MGR shapes of mgr_64 (level
    0 P and R, the level 1 operator, the coarsest operator), float64 (rel
-   1e-12), with the CSR kernel's lanes-per-row choice swept on P and R.
+   1e-12), with the CSR kernel's lanes-per-row choice swept on P and R; and
+   at seq_64's ILU shapes (the level-1 L and U factors).
 
 Prints the kernel table as one JSON line, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``.  Details go to
@@ -94,8 +115,72 @@ EX3_MGR = {"mgr": {
                   "restriction_type": "columped"}},
     "coarsest_level": "amg"}}
 
-# objects one phase hands to a later one (the mgr_64 hierarchy)
+# ex7-reuse's solver and MGR (examples/ex7-reuse.yml)
+EX7_FGMRES = {"fgmres": {"max_iter": 100, "krylov_dim": 30,
+                         "relative_tol": 1e-6}}
+EX7_MGR = {
+    "max_iter": 1,
+    "level": {
+        0: {"f_dofs": [2],
+            "f_relaxation": {"amg": {"coarsening": {"type": "pmis",
+                                                    "strong_th": 0.5}}},
+            "g_relaxation": "none", "restriction_type": "injection",
+            "prolongation_type": "jacobi"},
+        1: {"f_dofs": [1], "f_relaxation": "single", "g_relaxation": "ilu",
+            "restriction_type": "columped",
+            "prolongation_type": "injection"}},
+    "coarsest_level": {"amg": {"max_iter": 1, "relaxation": {
+        "down_type": "l1-jacobi", "up_type": "l1-jacobi"}}}}
+
+# the JAX package's counts per stats entry through its CLI on the CPU
+# (float64); tests/test_torch_slice_seq.py holds the port to them exactly
+JAX_ITERS_EX4 = (10,)
+JAX_ITERS_EX7 = (12, 21, 8, 12, 21, 8, 12, 21)
+JAX_ITERS_EX7_REUSE = (12, 24, 8, 17, 21, 15, 12, 24)
+JAX_ITERS_EX7_FRELAX_REUSE = (10, 22, 7, 15, 16, 18, 10, 20)
+JAX_ITERS_EX2 = (5,)
+JAX_ITERS_EX8 = (7, 6, 7, 6, 6)
+
+# GMRES(30) to 1e-6 on data/multiphys2k (b from its file) with each
+# standalone ILU type and Schwarz: the JAX package's counts on the CPU
+JAX_ILU_VARIANTS = (
+    ({"ilu": {"type": "bj-ilu0"}}, 60), ({"ilu": {"type": "bj-ilut"}}, 115),
+    ({"ilu": {"type": "gmres-iluk"}}, 187),
+    ({"ilu": {"type": "nsh-iluk"}}, 60), ({"ilu": {"type": "ras-iluk"}}, 104),
+    ({"schwarz": {"variant": "as-spdirect"}}, 231))
+
+# the JAX package on drift_sequence(64, 4) with ex7-reuse's FGMRES + MGR
+# and per-timestep reuse (two Newton systems per timestep), float64,
+# through its library API on the CPU: iterations and true relative
+# residuals per system; systems 1 and 3 reuse the preconditioner
+JAX_ITERS_SEQ64 = (38, 55, 20, 80)
+JAX_RELRES_SEQ64 = (9.859454860586217e-07, 7.770520952997071e-07,
+                    9.958417935126493e-07, 8.727718813545901e-07)
+
+# objects one phase hands to a later one (the mgr_64 and seq_64 operators)
 KEEP = {}
+
+
+def drift_sequence(nx, count, seed=11):
+    """A sequence of Newton systems from one time-stepping run: the
+    multiphysics generator with its coupling and convection drifting by
+    f_k = 1 + 0.1 sin(2.1 k), so every system keeps the sparsity pattern
+    and stays well posed.  b_k = cos(0.3 k)·1 + 0.1·N(0, 1), drawn in
+    order from one generator.  Returns ([(A_k, b_k)], dofmap)."""
+    import numpy as np
+    from hypredrive_tpu_torch.ops.csr import multiphysics_fv_system
+
+    rng = np.random.default_rng(seed)
+    out, dofmap = [], None
+    for k in range(count):
+        f = 1.0 + 0.1 * np.sin(2.1 * k)
+        A, dofmap = multiphysics_fv_system(nx, 3, seed=seed, contrast=0.3,
+                                           coupling=0.12 * f,
+                                           convection=0.08 * f)
+        b = np.cos(0.3 * k) * np.ones(A.shape[0]) \
+            + 0.1 * rng.standard_normal(A.shape[0])
+        out.append((A, b))
+    return out, dofmap
 
 
 class PhaseError(AssertionError):
@@ -449,8 +534,8 @@ def phase_128(report):
     check(dev <= 1e-6, f"128^3: history deviates from JAX by {dev:.3e}")
 
 
-def run_example(report, key, name, golden, rtol=1e-6):
-    """An example config through the CLI on the card (float64)."""
+def run_cli(name):
+    """An example config through the CLI on the card; its stats entries."""
     from hypredrive_tpu_torch import cli
 
     collect = []
@@ -459,7 +544,12 @@ def run_example(report, key, name, golden, rtol=1e-6):
                                         "off")],
                             collect=collect)
     check(rc == 0, f"{name}: cli returned {rc}")
-    (e,) = collect[0].stats.entries
+    return collect[0].stats.entries
+
+
+def run_example(report, key, name, golden, rtol=1e-6):
+    """An example config through the CLI on the card (float64)."""
+    (e,) = run_cli(name)
     report[key] = {"iters": e.iters, "rel_res_norm": e.rel_res_norm,
                    "setup_s": e.setup_time, "solve_s": e.solve_time}
     print(f"{name}: {e.iters} iterations, rel res {e.rel_res_norm:.3e}, "
@@ -633,6 +723,241 @@ def phase_mgr_kernels(report):
     torch.cuda.empty_cache()
 
 
+def run_sequence(report, key, name, goldens, rtol=1e-6, reused=()):
+    """A config with several stats entries through the CLI on the card:
+    each entry within ±1 iteration of the JAX package's count and
+    converged to ``rtol``; the ``reused`` entries (preconditioner kept)
+    set up in under 0.2× the mean setup of the others."""
+    entries = run_cli(name)
+    out = report[key] = {k: [getattr(e, a) for e in entries] for k, a in (
+        ("iters", "iters"), ("rel_res_norm", "rel_res_norm"),
+        ("setup_s", "setup_time"), ("solve_s", "solve_time"))}
+    print(f"{name}: iterations {out['iters']} (JAX package "
+          f"{list(goldens)}), max rel res {max(out['rel_res_norm']):.3e}, "
+          f"setup s {[round(t, 4) for t in out['setup_s']]}, solve s "
+          f"{[round(t, 4) for t in out['solve_s']]}")
+    check(len(entries) == len(goldens),
+          f"{name}: {len(entries)} entries, expected {len(goldens)}")
+    for i, (e, g) in enumerate(zip(entries, goldens)):
+        check(abs(e.iters - g) <= 1,
+              f"{name} entry {i}: {e.iters} iterations, JAX package {g}")
+        check(e.converged and e.rel_res_norm <= rtol,
+              f"{name} entry {i}: rel res {e.rel_res_norm:.3e} > {rtol}")
+    if reused:
+        rebuilt = [e.setup_time for i, e in enumerate(entries)
+                   if i not in reused]
+        bound = 0.2 * sum(rebuilt) / len(rebuilt)
+        for i in reused:
+            check(entries[i].setup_time < bound,
+                  f"{name} entry {i}: setup {entries[i].setup_time:.4f} s "
+                  f"with the preconditioner reused (bound {bound:.4f} s)")
+
+
+def phase_mgr_ex4(report):
+    run_sequence(report, "mgr_ex4", "ex4.yml", JAX_ITERS_EX4)
+
+
+def phase_seq_ex7(report):
+    run_sequence(report, "seq_ex7", "ex7.yml", JAX_ITERS_EX7)
+
+
+def phase_seq_ex7_reuse(report):
+    run_sequence(report, "seq_ex7_reuse", "ex7-reuse.yml",
+                 JAX_ITERS_EX7_REUSE, reused=(1, 3, 5, 7))
+
+
+def phase_seq_ex7_frelax_reuse(report):
+    run_sequence(report, "seq_ex7_frelax_reuse", "ex7-mgr-frelax-reuse.yml",
+                 JAX_ITERS_EX7_FRELAX_REUSE, reused=(1, 3, 5, 7))
+
+
+def phase_amg_gs_fsai(report):
+    """ex2 (hybrid GS down/up + the FSAI complex smoother on level 0) and
+    ex8's five AMG variants (Chebyshev, hybrid symmetric GS, FSAI)."""
+    run_sequence(report, "amg_ex2", "ex2.yml", JAX_ITERS_EX2)
+    run_sequence(report, "amg_ex8", "ex8.yml", JAX_ITERS_EX8, rtol=1e-9)
+
+
+def phase_ilu_variants(report):
+    """GMRES with each standalone ILU type and Schwarz on multiphys2k."""
+    import numpy as np
+    from hypredrive_tpu_torch import HypreDrive
+
+    base = os.path.join("data", "multiphys2k", "np1")
+    out = report["ilu_variants"] = []
+    for precon, golden in JAX_ILU_VARIANTS:
+        drv = HypreDrive()
+        drv.set_library_mode()
+        drv.input_args_from_dict({
+            "general": {"statistics": False},
+            "linear_system": {
+                "matrix_filename": os.path.join(base, "IJ.out.A"),
+                "rhs_filename": os.path.join(base, "IJ.out.b")},
+            "solver": {"gmres": {"max_iter": 300, "krylov_dim": 30,
+                                 "relative_tol": 1e-6}},
+            "preconditioner": precon})
+        drv.linear_system_build()
+        drv.precon_create()
+        drv.linear_solver_create()
+        drv.linear_solver_setup()
+        res = drv.linear_solver_apply()
+        e = drv.stats.entries[-1]
+        x = drv.get_solution()
+        drv.destroy()
+        name = json.dumps(precon, sort_keys=True)
+        out.append({"precon": precon, "iters": res.iters,
+                    "rel_res_norm": res.rel_res_norm,
+                    "setup_s": e.setup_time, "solve_s": e.solve_time})
+        print(f"GMRES + {name}: {res.iters} iterations (JAX package "
+              f"{golden}), rel res {res.rel_res_norm:.3e}, setup "
+              f"{e.setup_time:.4f} s, solve {e.solve_time:.4f} s")
+        check(abs(res.iters - golden) <= 1,
+              f"{name}: {res.iters} iterations, JAX package {golden}")
+        check(res.converged and res.rel_res_norm <= 1e-6
+              and np.all(np.isfinite(x)),
+              f"{name}: rel res {res.rel_res_norm:.3e} > 1e-6")
+
+
+def _span_seconds(prof, prefix):
+    """Host seconds inside the profiler spans whose names start with
+    ``prefix``, outermost only (nested spans of the same prefix are not
+    counted twice)."""
+    evs = sorted((e for e in prof.events() if e.name.startswith(prefix)),
+                 key=lambda e: e.time_range.start)
+    total, end = 0.0, -1.0
+    for e in evs:
+        if e.time_range.start >= end:
+            total += (e.time_range.end - e.time_range.start) / 1e6
+            end = e.time_range.end
+    return total
+
+
+def phase_seq64(report):
+    """Two timesteps of two Newton systems at nx = 64 (786,432 rows each),
+    FGMRES + ex7-reuse's MGR with per-timestep reuse, through the library
+    API once per system, against the JAX package's pinned counts."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from hypredrive_tpu_torch import HypreDrive
+    from hypredrive_tpu_torch.io import native
+
+    t0 = time.perf_counter()
+    seq, dofmap = drift_sequence(64, len(JAX_ITERS_SEQ64))
+    gen_s = time.perf_counter() - t0
+    A0 = seq[0][0]
+    check(A0.shape[0] == 786432 and A0.nnz == 6742016,
+          f"seq_64: {A0.shape[0]} rows / {A0.nnz} nnz")
+    check(all((A.indices == A0.indices).all() for A, _ in seq),
+          "seq_64: the sparsity pattern drifts")
+    helper = native.backend()
+    print(f"seq_64: generated 4 systems in {gen_s:.3f} s; ILU(0) "
+          f"factorization path: {helper}")
+    out = report["seq_64"] = {"rows": A0.shape[0], "nnz": A0.nnz,
+                              "generate_s": gen_s, "ilu0_path": helper,
+                              "systems": []}
+    with tempfile.TemporaryDirectory() as tmp:
+        ts_file = os.path.join(tmp, "timesteps.txt")
+        with open(ts_file, "w") as f:
+            f.write("2\n0 0\n1 2\n")
+        drv = HypreDrive()
+        drv.set_library_mode()
+        drv.input_args_from_dict({
+            "general": {"statistics": False},
+            "linear_system": {"timestep_filename": ts_file},
+            "solver": EX7_FGMRES,
+            "preconditioner": {"mgr": EX7_MGR, "reuse": {
+                "enabled": True, "per_timestep": True}}})
+        for k, (A, b) in enumerate(seq):
+            drv.set_matrix_from_csr(A.indptr, A.indices, A.data)
+            drv.set_rhs(b)
+            drv.set_dofmap(dofmap)
+            before = drv.precon
+            drv.precon_create()
+            rebuilt = drv.precon is not before
+            drv.linear_solver_create()
+            with profile(activities=[ProfilerActivity.CPU]) as prof:
+                t0 = time.perf_counter()
+                drv.linear_solver_setup()
+                torch.cuda.synchronize()
+                setup_s = time.perf_counter() - t0
+            res = drv.linear_solver_apply()
+            x = drv.get_solution()
+            host_rel = float(np.linalg.norm(b - A @ x) / np.linalg.norm(b))
+            sysk = {"k": k, "rebuilt": rebuilt, "iters": res.iters,
+                    "rel_res_norm": res.rel_res_norm, "host_rel_res": host_rel,
+                    "setup_s": setup_s, "solve_s": res.solve_time}
+            if rebuilt:
+                sysk["setup_split_s"] = {
+                    "ilu0_factor": _span_seconds(prof,
+                                                 "hypredrv::ilu0_factor"),
+                    "ilu_component": _span_seconds(
+                        prof, "hypredrv::component_ilu"),
+                    "nested_amg": _span_seconds(prof,
+                                                "hypredrv::component_amg")}
+                sp_ = sysk["setup_split_s"]
+                sp_["mgr_rest"] = (setup_s - sp_["ilu_component"]
+                                   - sp_["nested_amg"])
+            out["systems"].append(sysk)
+            print(f"seq_64 system {k} ({'rebuild' if rebuilt else 'reuse'}):"
+                  f" {res.iters} iterations (JAX package "
+                  f"{JAX_ITERS_SEQ64[k]}), rel res {res.rel_res_norm!r} "
+                  f"(host {host_rel!r}; JAX {JAX_RELRES_SEQ64[k]!r}), setup "
+                  f"{setup_s:.3f} s, solve {res.solve_time:.4f} s"
+                  + (f", setup split {sysk['setup_split_s']}"
+                     if rebuilt else ""))
+            if k == len(seq) - 1:
+                # a warm solve and a profiled one on the reused preconditioner
+                drv.reset_initial_guess()
+                out["solve_warm_s"] = drv.linear_solver_apply().solve_time
+                print(f"  warm solve of system {k}: "
+                      f"{out['solve_warm_s']:.4f} s")
+                out["profile_reused"] = profile_solve(drv)
+                KEEP["seq64_ilu"] = drv.precon.state.levels[1].g_state
+            drv.precon_destroy()
+        out["reuse_decisions"] = [s_["rebuilt"] for s_ in out["systems"]]
+        drv.destroy()
+    print(f"seq_64 reuse decisions (rebuild?): {out['reuse_decisions']}")
+    for sysk, golden, jax_rel in zip(out["systems"], JAX_ITERS_SEQ64,
+                                     JAX_RELRES_SEQ64):
+        k = sysk["k"]
+        check(abs(sysk["iters"] - golden) <= 1,
+              f"seq_64 system {k}: {sysk['iters']} iterations, JAX "
+              f"package {golden}")
+        check(sysk["rel_res_norm"] <= 1.02e-6
+              and sysk["host_rel_res"] <= 1.02e-6,
+              f"seq_64 system {k}: true rel res {sysk['rel_res_norm']:.4e} "
+              f"(host {sysk['host_rel_res']:.4e}) > 1.02e-6")
+    check(out["reuse_decisions"] == [True, False, True, False],
+          f"seq_64: rebuilds {out['reuse_decisions']}, expected one per "
+          "timestep")
+    rebuilt_s = [s_["setup_s"] for s_ in out["systems"] if s_["rebuilt"]]
+    for s_ in out["systems"]:
+        if not s_["rebuilt"]:
+            check(s_["setup_s"] < 0.2 * min(rebuilt_s),
+                  f"seq_64 system {s_['k']}: setup {s_['setup_s']:.4f} s "
+                  "with the preconditioner reused")
+    check(helper == "native", "seq_64: the compiled host helpers (ILU(0) "
+                              "among them) did not build")
+
+
+def phase_seq_kernels(report):
+    """Each kernel against its plain version at the shapes of seq_64's
+    ILU sweeps (the level-1 L and U factors), float64 (rel 1e-12)."""
+    import torch
+
+    st = KEEP.pop("seq64_ilu")
+    checks = KernelChecks()
+    for shape_name, E in ((f"ILU L {st.L.shape[0]}x{st.L.shape[1]}", st.L),
+                          (f"ILU U {st.U.shape[0]}x{st.U.shape[1]}", st.U)):
+        checks.matrix(shape_name, E, torch.float64)
+    report["kernel_checks"].extend(checks.rows)
+    del st
+    torch.cuda.empty_cache()
+
+
 KERNELS = {
     "dia_spmv": ("hypredrive_tpu_torch/csrc/dia_spmv.cu",
                  "hypredrive_tpu/ops/pallas_dia.py:99 (K1); "
@@ -651,7 +976,13 @@ PATHS = (("ex1", phase_ex1, BOTH), ("lap64", phase_64, BOTH),
          ("mgr_ex5", phase_mgr_ex5, BOTH),
          ("jacobi_ex1", phase_jacobi_ex1, ("dia_spmv",)),
          ("mgr_64", phase_mgr64, BOTH),
-         ("krylov_variants", phase_krylov_variants, BOTH))
+         ("krylov_variants", phase_krylov_variants, BOTH),
+         ("mgr_ex4", phase_mgr_ex4, BOTH), ("seq_ex7", phase_seq_ex7, BOTH),
+         ("seq_ex7_reuse", phase_seq_ex7_reuse, BOTH),
+         ("seq_ex7_frelax_reuse", phase_seq_ex7_frelax_reuse, BOTH),
+         ("amg_gs_fsai", phase_amg_gs_fsai, BOTH),
+         ("ilu_variants", phase_ilu_variants, BOTH),
+         ("seq_64", phase_seq64, BOTH))
 
 
 def main() -> int:
@@ -698,10 +1029,13 @@ def main() -> int:
                     failures.append(f"launches: {name} never launched {k}")
         report["launches"] = launches
         print(f"main-path kernel launches: {launches}")
-        if "mgr64_state" in KEEP:
-            run("mgr_kernels", phase_mgr_kernels)
-        else:
-            failures.append("mgr_kernels: no mgr_64 hierarchy to check")
+        for name, key, fn in (("mgr_kernels", "mgr64_state",
+                               phase_mgr_kernels),
+                              ("seq_kernels", "seq64_ilu", phase_seq_kernels)):
+            if key in KEEP:
+                run(name, fn)
+            else:
+                failures.append(f"{name}: no operators to check")
     report["total_s"] = time.perf_counter() - t_start
     report["failures"] = failures
     os.makedirs("build", exist_ok=True)

@@ -14,6 +14,8 @@ plus the one-shot :func:`solve` (the reference Python binding's
 
 from __future__ import annotations
 
+import bisect
+import os
 from typing import Optional
 
 import numpy as np
@@ -43,6 +45,10 @@ class HypreDrive:
         self.library_mode = False
         self.current_system_index = -1
         self._precon_is_setup = False
+        self._reuse_state = None        # precon.reuse.PreconReuseState
+        self._timestep_schedule = None  # [(timestep id, first ls id)]
+        self._mgr_component_cache = None
+        self._mgr_setup_count = 0
 
     # -- config ----------------------------------------------------------
 
@@ -64,18 +70,73 @@ class HypreDrive:
             # config echo is a driver-mode feature (ref: args.c:113)
             g.print_config_params = False
         ls = self.args.linear_system
-        if self.args.preconditioner.reuse.enabled:
-            raise _not_ported("preconditioner reuse")
         if (ls.get("print_system") or {}).get("enable"):
             raise _not_ported("linear_system.print_system")
-        if ls.get("timestep_filename"):
-            raise _not_ported("linear_system.timestep_filename")
         if ls.eigspec.enable:
             raise _not_ported("linear_system.eigspec")
         if (self.args.solver.scaling or {}).get("enabled"):
             raise _not_ported("solver scaling")
         self.stats = Stats(use_millisec=g.use_millisec,
                            name=g.name or self.name)
+        self._reuse_state = None
+        if self.args.precon_variants and self.args.preconditioner.reuse.enabled:
+            from .precon.reuse import PreconReuseState
+
+            self._reuse_state = PreconReuseState(self.args.preconditioner.reuse)
+        self._load_timestep_schedule()
+
+    def _load_timestep_schedule(self):
+        """Load the (timestep, ls_start) schedule from
+        ``linear_system.timestep_filename`` (ASCII: count line, then
+        "timestep ls_start" lines; ref: hypredrv_LinearSystemLoad-
+        TimestepSchedule, src/internal/linsys.c:3195-3292) and feed it to
+        the reuse engine (ref: src/HYPREDRV.c:1258-1281).  The lsseq
+        container's timestep table is not read: ``sequence_filename``
+        raises "not yet ported" when the system is built."""
+        self._timestep_schedule = None
+        ts_file = self.args.linear_system.get("timestep_filename") or ""
+        if not ts_file:
+            return
+        if not os.path.isfile(ts_file):
+            raise HypredrvError(f"timestep file not found: '{ts_file}'",
+                                ErrorCode.FILE_NOT_FOUND)
+        with open(ts_file) as fh:
+            tokens = fh.read().split()
+        try:
+            total = int(tokens[0]) if tokens else None
+        except ValueError:
+            total = None
+        if total is None:
+            raise HypredrvError(
+                f"invalid timestep file header in '{ts_file}'",
+                ErrorCode.INVALID_ARG)
+        if total <= 0 or len(tokens) < 1 + 2 * total:
+            raise HypredrvError(f"invalid timestep file '{ts_file}'",
+                                ErrorCode.INVALID_ARG)
+        schedule = []
+        for i in range(total):
+            try:
+                t = int(tokens[1 + 2 * i])
+                start = int(tokens[2 + 2 * i])
+            except ValueError:
+                start = -1
+            if start < 0:
+                raise HypredrvError(
+                    f"invalid timestep entry in '{ts_file}' at line {i + 2}",
+                    ErrorCode.INVALID_ARG)
+            schedule.append((t, start))
+        self._timestep_schedule = schedule
+        if self._reuse_state is not None:
+            self._reuse_state.set_timesteps(schedule)
+
+    def _timestep_index(self, ls_id: int):
+        """Position of the system's timestep in the schedule (the last
+        start ≤ ls_id), or None without a schedule."""
+        if not self._timestep_schedule:
+            return None
+        starts = [s for _, s in self._timestep_schedule]
+        idx = bisect.bisect_right(starts, ls_id) - 1
+        return idx if idx >= 0 else None
 
     def set_library_mode(self):
         """ref: HYPREDRV_SetLibraryMode (src/HYPREDRV.c:1309)"""
@@ -86,6 +147,7 @@ class HypreDrive:
         self.args.set_precon_variant(index)
         self.precon = None
         self.solver = None
+        self._mgr_component_cache = None   # the cache is per variant
 
     # -- linear system ----------------------------------------------------
 
@@ -143,11 +205,31 @@ class HypreDrive:
     # -- solve lifecycle ----------------------------------------------------
 
     def precon_create(self):
-        """ref: HYPREDRV_PreconCreate (src/HYPREDRV.c:2793)."""
-        from .precon import create_precon
+        """ref: HYPREDRV_PreconCreate (src/HYPREDRV.c:2793); honours the
+        reuse engine's rebuild decision."""
+        if self.precon is None:
+            rebuild = True
+            if self._reuse_state is not None:
+                self._reuse_state.note_rebuild(self.current_system_index,
+                                               self.stats)
+        elif self._reuse_state is not None:
+            rebuild = self._reuse_state.should_rebuild(
+                self.current_system_index, self.stats)
+        else:
+            rebuild = True
+        if rebuild:
+            from .precon import create_precon
 
-        self.precon = create_precon(self.args.preconditioner, self.args)
-        self._precon_is_setup = False
+            self.precon = create_precon(self.args.preconditioner, self.args)
+            self._precon_is_setup = False
+            if (self._mgr_component_cache is not None
+                    and self.precon.method == "mgr"):
+                # MGR component-level reuse: cached F/G/coarsest solver
+                # components survive whole-precon rebuilds across a
+                # sequence (ref: hypredrv_MGRRefreshComponentsForSetup,
+                # include/internal/mgr.h:168-177)
+                self.precon._component_cache = self._mgr_component_cache
+                self.precon._setup_count = self._mgr_setup_count
         return self.precon
 
     def linear_solver_create(self):
@@ -175,12 +257,26 @@ class HypreDrive:
     def linear_solver_apply(self):
         """Krylov solve (ref: HYPREDRV_LinearSolverApply,
         src/HYPREDRV.c:3126)."""
-        return self.solver.apply(self._require_system(), self.precon,
-                                 stats=self.stats)
+        result = self.solver.apply(self._require_system(), self.precon,
+                                   stats=self.stats)
+        if self._reuse_state is not None:
+            self._reuse_state.record_observation(
+                self.current_system_index, self.stats, result)
+        return result
 
     def precon_destroy(self):
-        self.precon = None
-        self._precon_is_setup = False
+        """Destroy unless the reuse engine says keep (ref: main.c:221 +
+        reuse); a destroyed MGR leaves its component cache behind."""
+        keep = (self._reuse_state is not None
+                and self._reuse_state.should_keep(self.current_system_index,
+                                                  self.stats))
+        if not keep:
+            cache = getattr(self.precon, "_component_cache", None)
+            if cache:
+                self._mgr_component_cache = cache
+                self._mgr_setup_count = self.precon._setup_count
+            self.precon = None
+            self._precon_is_setup = False
 
     def linear_solver_destroy(self):
         self.solver = None
@@ -192,6 +288,44 @@ class HypreDrive:
 
     def annotate_end(self, name: str, index: Optional[int] = None):
         self.stats.annotate_end(name, index)
+
+    def annotate_level_begin(self, name: str, index: int):
+        self.stats.annotate_level_begin(name, index)
+
+    def annotate_level_end(self, name: str, index: int):
+        self.stats.annotate_level_end(name, index)
+
+    # level getters (ref: HYPREDRV_StatsLevel*, include/HYPREDRV.h:2223)
+    def get_level_time(self, name: str, index=None) -> float:
+        return self.stats.level_time(name, index)
+
+    def get_level_records(self, name=None):
+        return self.stats.level_records(name)
+
+    def stats_level_get_count(self, name: str) -> int:
+        """Completed frames of a level name
+        (ref: HYPREDRV_StatsLevelGetCount)."""
+        return len(self.stats.level_records(name))
+
+    def stats_level_get_entry_summary(self, name: str, index: int):
+        """(num_solves, linear_iters, setup_time, solve_time) of one
+        completed level frame (ref: HYPREDRV_StatsLevelGetEntry /
+        StatsLevelGetEntrySummary)."""
+        recs = self.stats.level_records(name)
+        if not 0 <= index < len(recs):
+            raise HypredrvError(f"level '{name}' has no entry {index}",
+                                ErrorCode.INVALID_ARG)
+        e0, e1 = recs[index]["entries"]
+        entries = self.stats.entries[e0:e1]
+        return (len(entries),
+                sum(e.iters for e in entries),
+                sum(e.setup_time for e in entries),
+                sum(e.solve_time for e in entries))
+
+    def stats_level_print(self):
+        text = self.stats.level_table()
+        if text:
+            print(text, end="")
 
     def stats_print(self, filename: Optional[str] = None):
         if self.args is not None and self.args.general.statistics_filename:

@@ -5,9 +5,9 @@ hierarchy or the same MGR setup on both sides, the two packages' device
 code can be compared without any difference from setup.  The argument
 objects are duck-typed (``hypredrive_tpu.ops.device_matrix.EllMatrix``,
 ``hypredrive_tpu.precon.amg.hierarchy.AMGState``,
-``hypredrive_tpu.precon.mgr.MGRState`` and the component states of
-``hypredrive_tpu.precon.components``); this module imports neither JAX
-nor the JAX package.
+``hypredrive_tpu.precon.mgr.MGRState``, the component states of
+``hypredrive_tpu.precon.components`` and the ILU, FSAI and Schwarz states);
+this module imports neither JAX nor the JAX package.
 """
 
 from __future__ import annotations
@@ -29,16 +29,84 @@ def ell_matrix(E, dtype: torch.dtype = torch.float64,
     return out
 
 
+def _vec(a, dtype, device):
+    return torch.tensor(np.array(a), dtype=dtype, device=device)
+
+
 def _smoother(kind, arrays, dtype, device):
     if arrays is None:
         return None
     if kind == "chebyshev":
         d_inv, theta, delta, rhos = arrays
-        return (torch.tensor(np.array(d_inv), dtype=dtype, device=device),
+        return (_vec(d_inv, dtype, device),
                 float(np.asarray(theta)), float(np.asarray(delta)),
                 tuple(float(r) for r in np.asarray(rhos)))
-    return tuple(torch.tensor(np.array(a), dtype=dtype, device=device)
-                 for a in arrays)
+    if kind == "fsai":
+        G, GT, omega = arrays
+        return (ell_matrix(G, dtype, device), ell_matrix(GT, dtype, device),
+                float(np.asarray(omega)))
+    if kind in ("gs-fwd", "gs-bwd", "gs-sym"):
+        d_inv, L, U = arrays
+        return (_vec(d_inv, dtype, device),
+                ell_matrix(L, dtype, device) if L is not None else None,
+                ell_matrix(U, dtype, device) if U is not None else None)
+    return tuple(_vec(a, dtype, device) for a in arrays)
+
+
+def ilu_state(state, dtype: torch.dtype = torch.float64,
+              device: torch.device = torch.device("cpu")):
+    """One of the JAX package's ILU apply states (``precon/ilu.py``: the
+    tri-Jacobi tuple, ``SchurILUState``, ``NSHState``, or the Schwarz
+    tuple of the RAS types) as this package's."""
+    from .precon import ilu
+
+    if type(state).__name__ == "NSHState":
+        return ilu.NSHState(ell_matrix(state.M, dtype, device))
+    if type(state).__name__ == "SchurILUState":
+        def idx(a):
+            return torch.tensor(np.array(a), dtype=torch.int64,
+                                device=device)
+
+        return ilu.SchurILUState(
+            int_idx=idx(state.int_idx), if_idx=idx(state.if_idx),
+            b_state=ilu_state(state.b_state, dtype, device),
+            c_state=ilu_state(state.c_state, dtype, device),
+            E=ell_matrix(state.E, dtype, device),
+            F=ell_matrix(state.F, dtype, device),
+            C=ell_matrix(state.C, dtype, device),
+            schur_max_iter=int(state.schur_max_iter))
+    if len(state) == 4:
+        return schwarz_state(state, dtype, device)
+    L, U, _l_dinv, u_dinv, l_iters, u_iters = state
+    return ilu.TriJacobiState(
+        L=ell_matrix(L, dtype, device), U=ell_matrix(U, dtype, device),
+        u_dinv=_vec(u_dinv, dtype, device), l_iters=int(l_iters),
+        u_iters=int(u_iters))
+
+
+def schwarz_state(state, dtype: torch.dtype = torch.float64,
+                  device: torch.device = torch.device("cpu")):
+    """The JAX package's Schwarz tuple (inv, ext_idx, own_mask, weight)."""
+    from .precon.schwarz import SchwarzState
+
+    inv, ext_idx, own_mask, weight = state
+    return SchwarzState(
+        inv=_vec(inv, dtype, device),
+        ext_idx=torch.tensor(np.array(ext_idx), dtype=torch.int64,
+                             device=device),
+        own_mask=torch.tensor(np.array(own_mask), dtype=torch.bool,
+                              device=device),
+        weight=_vec(weight, dtype, device))
+
+
+def fsai_state(state, dtype: torch.dtype = torch.float64,
+               device: torch.device = torch.device("cpu")):
+    """The JAX package's FSAI (G, Gᵀ) pair."""
+    from .precon.fsai import FSAIState
+
+    G, GT = state
+    return FSAIState(ell_matrix(G, dtype, device),
+                     ell_matrix(GT, dtype, device))
 
 
 def amg_state(state, dtype: torch.dtype = torch.float64,
@@ -69,7 +137,7 @@ def component_state(kind: str, state, dtype: torch.dtype = torch.float64,
     """One of the JAX package's MGR component states (``precon/
     components.py``) as this package's, by kind."""
     def vec(a):
-        return torch.tensor(np.array(a), dtype=dtype, device=device)
+        return _vec(a, dtype, device)
 
     if kind == "none" or state is None:
         return None
@@ -83,6 +151,12 @@ def component_state(kind: str, state, dtype: torch.dtype = torch.float64,
                 tuple(float(r) for r in np.asarray(rhos)))
     if kind == "amg":
         return amg_state(state, dtype, device)
+    if kind == "ilu":
+        return ilu_state(state, dtype, device)
+    if kind == "fsai":
+        return fsai_state(state, dtype, device)
+    if kind == "schwarz":
+        return schwarz_state(state, dtype, device)
     if kind == "dense":
         return vec(state)
     if kind == "krylov":

@@ -1,14 +1,20 @@
 """Statistics: phase timers, per-solve entries, and the ASCII summary table.
 
 Counterpart of ``hypredrive_tpu/core/stats.py`` (ref: src/internal/stats.c,
-include/internal/stats.h), without the hierarchical level annotations: an
-annotation state machine where named begin/end marks drive timers —
+include/internal/stats.h): an annotation state machine where named
+begin/end marks drive timers —
 
   * ``"matrix"`` begin opens a *new* linear-system entry
     (ref: src/internal/stats.c:315 HandleAnnotationBegin),
   * ``"rhs"``/``"dofmap"`` accumulate into the current entry's build time,
   * ``"prec"`` is preconditioner setup, ``"solve"`` is the Krylov solve,
   * any other name is a custom application annotation.
+
+Hierarchical *level* annotations (up to 4 deep — e.g. timestep → Newton
+iteration) tag entries with a dotted path like ``1.2`` and feed per-level
+rollup tables (ref: src/internal/stats.c:957 StatsAnnotateLevelBegin,
+:1689 StatsLevelPrint); the reuse engine reads the open frames and the
+closed records.
 
 Each phase also opens a ``torch.profiler.record_function`` span named
 ``hypredrv::<phase>``, visible in a profiler trace.
@@ -29,6 +35,8 @@ from torch.profiler import record_function
 _BUILD_PHASES = ("matrix", "rhs", "dofmap")
 _KNOWN_PHASES = _BUILD_PHASES + ("prec", "solve")
 
+MAX_LEVELS = 4  # ref: include/internal/stats.h level annotation depth
+
 
 @dataclass
 class StatsEntry:
@@ -42,12 +50,21 @@ class StatsEntry:
     initial_res_norm: float = 0.0
     rel_res_norm: float = 0.0
     converged: bool = True
+    path: str = ""  # hierarchical level path label like "1.2"
     is_rerun: bool = False  # variant/repetition on the same system
                             # (blank LS-build column, ref: ex8 output)
 
     @property
     def build_time(self) -> float:
         return sum(self.build_times.values())
+
+
+@dataclass
+class _LevelFrame:
+    name: str
+    index: int
+    t_start: float
+    first_entry: int
 
 
 class Stats:
@@ -60,6 +77,8 @@ class Stats:
         self._open: Dict[str, float] = {}
         self._custom: Dict[str, List[float]] = {}
         self._custom_open: Dict[str, float] = {}
+        self._levels: List[_LevelFrame] = []
+        self._level_records: List[dict] = []
         self._ls_counter = -1
         self._spans: Dict[str, record_function] = {}
 
@@ -81,7 +100,8 @@ class Stats:
         if key == "matrix":
             # A new matrix read opens a new entry (ref: stats.c:315).
             self._ls_counter += 1
-            self.entries.append(StatsEntry(ls_id=self._ls_counter))
+            self.entries.append(StatsEntry(ls_id=self._ls_counter,
+                                           path=self._current_path()))
             self._open[key] = now
         elif key in _KNOWN_PHASES:
             if (key == "prec" and self.entries
@@ -90,7 +110,8 @@ class Stats:
                 # sweep / repetition) opens a fresh entry on the same
                 # system — ref: ex8 refOutput rows 1-4 have no LS-build
                 self.entries.append(
-                    StatsEntry(ls_id=self._ls_counter, is_rerun=True))
+                    StatsEntry(ls_id=self._ls_counter,
+                               path=self._current_path(), is_rerun=True))
             self._open[key] = now
         else:
             self._custom_open[tag] = now
@@ -117,10 +138,36 @@ class Stats:
             if t0 is not None:
                 self._custom.setdefault(tag, []).append(now - t0)
 
+    # ---- hierarchical level annotations --------------------------------
+
+    def annotate_level_begin(self, name: str, index: int):
+        if len(self._levels) >= MAX_LEVELS:
+            raise ValueError(
+                f"level annotations nest at most {MAX_LEVELS} deep")
+        self._levels.append(
+            _LevelFrame(name, index, time.perf_counter(), len(self.entries)))
+
+    def annotate_level_end(self, name: str, index: int):
+        if not self._levels:
+            return
+        frame = self._levels.pop()
+        self._level_records.append({
+            "depth": len(self._levels),
+            "name": frame.name,
+            "index": frame.index,
+            "time": time.perf_counter() - frame.t_start,
+            "entries": (frame.first_entry, len(self.entries)),
+            "path": ".".join(str(f.index) for f in self._levels + [frame]),
+        })
+
+    def _current_path(self) -> str:
+        return ".".join(str(f.index) for f in self._levels)
+
     def _current_entry(self) -> StatsEntry:
         if not self.entries:
             self._ls_counter += 1
-            self.entries.append(StatsEntry(ls_id=self._ls_counter))
+            self.entries.append(StatsEntry(ls_id=self._ls_counter,
+                                           path=self._current_path()))
         return self.entries[-1]
 
     def record_solve(self, iters: int, initial_res_norm: float,
@@ -165,10 +212,11 @@ class Stats:
         )
         lines = ["", header, "", sep, h1, h2, sep]
         for i, e in enumerate(self.entries):
+            label = f"{e.path}.{i}" if e.path else str(i)
             build = ("".ljust(11) if e.is_rerun
                      else f"{e.build_time * scale:>11.3f}")
             lines.append(
-                f"| {i:>6} | {build} |"
+                f"| {label:>6} | {build} |"
                 f" {e.setup_time * scale:>11.3f} | {e.solve_time * scale:>11.3f} |"
                 f" {e.initial_res_norm:>10.2e} | {e.rel_res_norm:>10.2e} |"
                 f" {e.iters:>6} |"
@@ -184,8 +232,103 @@ class Stats:
                 )
         return "\n".join(lines) + "\n"
 
+    def level_table(self) -> str:
+        """Per-level rollup (ref: src/internal/stats.c:1689 StatsLevelPrint)."""
+        if not self._level_records:
+            return ""
+        unit = "ms" if self.use_millisec else "s"
+        scale = 1e3 if self.use_millisec else 1.0
+        lines = ["", "LEVEL SUMMARY:", ""]
+        lines.append(f"{'path':>8} {'name':<16} {'time [' + unit + ']':>12} "
+                     f"{'entries':>8}")
+        for rec in self._level_records:
+            lo, hi = rec["entries"]
+            lines.append(f"{rec['path']:>8} {rec['name']:<16} "
+                         f"{rec['time'] * scale:>12.3f} {hi - lo:>8}")
+        for name in dict.fromkeys(r["name"] for r in self._level_records):
+            lines.append(self.level_aggregate_table(name))
+        return "\n".join(lines) + "\n"
+
+    def level_aggregate(self, name: str) -> Optional[dict]:
+        """Aggregate linear-solver stats over every frame of a level name
+        (ref: StatsLevelPrint's Aggregate Summary,
+        src/internal/stats.c:1693-1768): totals and per-solve / per-frame
+        averages of iterations and setup/solve times."""
+        frames = [r for r in self._level_records if r["name"] == name]
+        if not frames:
+            return None
+        total_solves = total_iters = 0
+        total_setup = total_solve = 0.0
+        for r in frames:
+            lo, hi = r["entries"]
+            for e in self.entries[lo:hi]:
+                total_solves += 1
+                total_iters += e.iters
+                total_setup += e.setup_time
+                total_solve += e.solve_time
+        n_frames = len(frames)
+        return {
+            "frames": n_frames,
+            "total_solves": total_solves,
+            "total_iters": total_iters,
+            "total_setup": total_setup,
+            "total_solve": total_solve,
+            "avg_iters_per_solve": (total_iters / total_solves
+                                    if total_solves else 0.0),
+            "avg_iters_per_frame": total_iters / n_frames,
+            "avg_setup_per_frame": total_setup / n_frames,
+            "avg_solve_per_frame": total_solve / n_frames,
+        }
+
+    def level_aggregate_table(self, name: str) -> str:
+        """Reference-format aggregate block for one level name
+        (ref: stats.c:1749-1768 'Aggregate Summary')."""
+        a = self.level_aggregate(name)
+        if a is None:
+            return ""
+        s, v, ff = a["total_setup"], a["total_solve"], a["frames"]
+        out = [
+            "",
+            f"Aggregate Summary ({name}):",
+            "-" * 62,
+            f"Total number of {name} frames:         {ff}",
+            f"Total number of linear iterations:     {a['total_iters']}",
+            f"Avg. LS iterations:                    "
+            f"{a['avg_iters_per_solve']:.2f}",
+            f"Total LS times: (setup, solve, total): "
+            f"{s:.4f}, {v:.4f}, {s + v:.4f}",
+            f"Avg. LS iterations per {name}:         "
+            f"{a['avg_iters_per_frame']:.2f}",
+            f"Avg. LS times per {name}: (s, s, t):   "
+            f"{a['avg_setup_per_frame']:.4f}, {a['avg_solve_per_frame']:.4f}"
+            f", {a['avg_setup_per_frame'] + a['avg_solve_per_frame']:.4f}",
+        ]
+        return "\n".join(out)
+
+    # programmatic level getters (ref: HYPREDRV_StatsLevelGet*/Print,
+    # include/HYPREDRV.h:2223-2262)
+    def level_records(self, name: Optional[str] = None):
+        """All closed level frames, optionally filtered by name."""
+        if name is None:
+            return list(self._level_records)
+        return [r for r in self._level_records if r["name"] == name]
+
+    def level_time(self, name: str, index: Optional[int] = None) -> float:
+        """Total wall time of level annotations with this name (one
+        specific index, or summed over all)."""
+        return sum(r["time"] for r in self._level_records
+                   if r["name"] == name
+                   and (index is None or r["index"] == index))
+
+    def level_entry_range(self, name: str, index: int):
+        """(first, last) stats-entry indices covered by a level frame."""
+        for r in self._level_records:
+            if r["name"] == name and r["index"] == index:
+                return tuple(r["entries"])
+        return None
+
     def print(self, file=None, filename: Optional[str] = None):
-        text = self.summary_table()
+        text = self.summary_table() + self.level_table()
         if filename:
             # Append mode, like general.statistics_filename
             # (ref: src/HYPREDRV.c:468-502).

@@ -1,10 +1,13 @@
 """ctypes bindings for the native C++ host helpers (native/src/ij_io.cpp,
-native/src/amg_setup.cpp): IJ I/O and the AMG setup passes.
+native/src/amg_setup.cpp, hypredrive_tpu_torch/csrc/ilu0.cpp): IJ I/O, the
+AMG setup passes and the ILU(0) factorization.
 
-The shared library is compiled on first use with ``g++`` from the repo's
-``native/src`` sources into ``build/hypredrive_tpu_torch/native-<hash>/``,
-keyed by a hash of the sources; the JAX package's own ``native/`` build is
-never touched.  If the build or load fails the callers fall back to the
+The shared library is compiled on first use with ``g++`` from those
+sources into ``build/hypredrive_tpu_torch/native-<hash>/``, keyed by a
+hash of the sources and flags; the JAX package's own ``native/`` build is
+never touched.  ``-ffp-contract=off`` keeps the compiler from fusing a
+multiply and an add, so the ILU(0) loop rounds as its Python version
+does.  If the build or load fails the callers fall back to the
 pure-numpy code, so the native layer is an accelerator, never a
 requirement.  :func:`backend` says which path was taken.  Ref counterparts:
 src/internal/matrix.c:142, src/internal/vector.c:92.
@@ -23,8 +26,10 @@ import numpy as np
 
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
-_SRCS = tuple(os.path.join(_REPO, "native", "src", f)
-              for f in ("ij_io.cpp", "amg_setup.cpp"))
+_SRCS = (os.path.join(_REPO, "native", "src", "ij_io.cpp"),
+         os.path.join(_REPO, "native", "src", "amg_setup.cpp"),
+         os.path.join(_REPO, "hypredrive_tpu_torch", "csrc", "ilu0.cpp"))
+_GXX_FLAGS = ("-O3", "-ffp-contract=off", "-fPIC", "-shared", "-std=c++17")
 _BUILD_ROOT = os.path.join(_REPO, "build", "hypredrive_tpu_torch")
 
 _lock = threading.Lock()
@@ -51,7 +56,7 @@ def _build() -> Optional[str]:
     """Compile the helpers into the build dir; the library path or None."""
     if not all(os.path.exists(p) for p in _SRCS):
         return None
-    h = hashlib.sha256()
+    h = hashlib.sha256(" ".join(_GXX_FLAGS).encode())
     for p in _SRCS:
         with open(p, "rb") as f:
             h.update(f.read())
@@ -62,8 +67,7 @@ def _build() -> Optional[str]:
     os.makedirs(out_dir, exist_ok=True)
     tmp = f"{so}.{os.getpid()}.tmp"
     try:
-        subprocess.run(["g++", "-O3", "-fPIC", "-shared", "-std=c++17",
-                        "-o", tmp, *_SRCS],
+        subprocess.run(["g++", *_GXX_FLAGS, "-o", tmp, *_SRCS],
                        check=True, capture_output=True, timeout=300)
         os.replace(tmp, so)
     except (OSError, subprocess.SubprocessError):
@@ -144,6 +148,10 @@ def get_lib() -> Optional[ctypes.CDLL]:
         lib.hdrv_dia_split_fill.restype = None
         lib.hdrv_dia_split_fill.argtypes = [
             ctypes.c_void_p, i64p, f64p, i64p, i64p, ctypes.c_void_p]
+        # ILU(0) (hypredrive_tpu_torch/csrc/ilu0.cpp)
+        lib.hdtt_ilu0_factor.restype = ctypes.c_int64
+        lib.hdtt_ilu0_factor.argtypes = [
+            ctypes.c_int64, i64p, i32p, f64p, i64p]
         _lib = lib
         return _lib
 
@@ -151,6 +159,29 @@ def get_lib() -> Optional[ctypes.CDLL]:
 def backend() -> str:
     """"native" when the C++ helpers built and loaded, else "numpy"."""
     return "native" if get_lib() is not None else "numpy"
+
+
+def ilu0_factor_data(indptr: np.ndarray, indices: np.ndarray,
+                     data: np.ndarray) -> Optional[np.ndarray]:
+    """The ILU(0) factors' values on a sorted CSR pattern (L strictly
+    below the diagonal, U on and above it), or None without the helpers.
+    Raises ValueError when a row has no diagonal entry."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    n = len(indptr) - 1
+    indptr = np.ascontiguousarray(indptr, dtype=np.int64)
+    indices = np.ascontiguousarray(indices, dtype=np.int32)
+    out = np.array(data, dtype=np.float64)
+    diag_pos = np.empty(n, np.int64)
+    rc = lib.hdtt_ilu0_factor(
+        n, _i64p(indptr),
+        indices.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+        _i64p(diag_pos))
+    if rc != 0:
+        raise ValueError(f"row {rc - 1} has no diagonal entry")
+    return out
 
 
 def read_matrix_ascii(path: str

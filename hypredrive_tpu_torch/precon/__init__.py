@@ -1,5 +1,5 @@
-"""Preconditioners: AMG (BoomerAMG-equivalent), MGR, (ℓ1-)Jacobi,
-hybrid Gauss-Seidel, Chebyshev and none.
+"""Preconditioners: AMG (BoomerAMG-equivalent), MGR, ILU, FSAI, Schwarz,
+(ℓ1-)Jacobi, hybrid Gauss-Seidel, Chebyshev and none.
 
 Reference equivalent: precon create/setup/apply dispatch
 (ref: src/internal/precon.c:461-563).

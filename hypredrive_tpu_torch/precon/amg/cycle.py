@@ -13,7 +13,17 @@ from __future__ import annotations
 import torch
 from torch.profiler import record_function
 
-from .hierarchy import AMGLevel, AMGState, _not_ported
+from .hierarchy import GS_TRI_ITERS, AMGLevel, AMGState, _not_ported
+
+
+def _tri_jacobi(d_inv, T, r):
+    """z ≈ (D + T)⁻¹ r by Jacobi iteration (T strictly triangular) — the
+    matvec-shaped triangular solve (ref: ilu.h tri_solve=off,
+    lower/upper_jac_iters)."""
+    z = d_inv * r
+    for _ in range(GS_TRI_ITERS):
+        z = d_inv * (r - T.matvec(z))
+    return z
 
 
 def _smooth(level: AMGLevel, x, b, sweeps: int, phase: str = "pre",
@@ -38,6 +48,23 @@ def _smooth(level: AMGLevel, x, b, sweeps: int, phase: str = "pre",
     if phase == "post" and level.up_smoother is not None:
         kind = level.up_smoother
         arrays = level.up_arrays
+    if kind == "fsai":
+        # complex smoother (ref: amg.c:441-457): x += ω Gᵀ G (b − A x)
+        G, GT, omega = arrays
+        for i in range(sweeps):
+            x = x + omega * GT.matvec(G.matvec(resid(x, i == 0)))
+        return x
+    if kind in ("gs-fwd", "gs-bwd", "gs-sym"):
+        # hybrid Gauss-Seidel: x += (D+L)⁻¹(b−Ax) with Jacobi-iterated
+        # triangular solves (ref: amg.c relax types 3/4/6/8/13/14/89)
+        d_inv, L, U = arrays
+        for i in range(sweeps):
+            if kind in ("gs-fwd", "gs-sym"):
+                x = x + _tri_jacobi(d_inv, L, resid(x, i == 0))
+            if kind in ("gs-bwd", "gs-sym"):
+                x = x + _tri_jacobi(d_inv, U,
+                                    resid(x, i == 0 and kind == "gs-bwd"))
+        return x
     if kind == "chebyshev":
         d_inv, theta, delta, rhos = arrays
         for i in range(sweeps):

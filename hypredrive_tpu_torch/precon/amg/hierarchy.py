@@ -12,10 +12,14 @@ levels; only the upload differs.  Each level's A, P and R become
 :class:`~hypredrive_tpu_torch.ops.device_matrix.EllMatrix` on the target
 device, with the smoother vectors beside them.
 
-Ported smoothers: Chebyshev (relax type 16, the default), Jacobi (0, 7)
-and ℓ1-Jacobi (18).  Hybrid Gauss-Seidel, C/F and AIR schedules, FSAI
-complex smoothers, aggressive coarsening and AIR restriction raise a typed
-"not yet ported" error.
+Ported smoothers: Chebyshev (relax type 16, the default), Jacobi (0, 7),
+ℓ1-Jacobi (18), hybrid Gauss-Seidel (the ``gs-*`` kinds: the strict
+triangular parts as device matrices, each triangular solve replaced by
+``GS_TRI_ITERS`` Jacobi corrections) and the FSAI complex smoother on the
+first ``smoother.num_levels`` levels (the host-sequential ilu/pilut/euclid
+types map to it, as in the JAX package).  C/F and AIR schedules,
+aggressive coarsening and AIR restriction raise a typed "not yet ported"
+error.
 """
 
 from __future__ import annotations
@@ -41,7 +45,17 @@ _RELAX_KIND = {
     13: "gs-fwd", 14: "gs-bwd", 89: "gs-sym",
     16: "chebyshev",
 }
-PORTED_SMOOTHERS = ("chebyshev", "jacobi", "l1-jacobi")
+PORTED_SMOOTHERS = ("chebyshev", "jacobi", "l1-jacobi",
+                    "gs-fwd", "gs-bwd", "gs-sym")
+
+# Jacobi iterations approximating each triangular solve in the hybrid GS
+# smoothers (z ← D⁻¹(r − L z) repeated); 2 corrections after the D⁻¹r seed
+# reproduce hypre's hybrid-GS iteration counts on the example suite
+GS_TRI_ITERS = 2
+
+# smoother.type codes that select the FSAI complex smoother
+# (ref vocab: fsai=4, ilu=5, pilut=7, parasails=8, euclid=9)
+FSAI_SMOOTHER_TYPES = (4, 5, 7, 8, 9)
 
 
 def _not_ported(what: str) -> HypredrvError:
@@ -131,8 +145,9 @@ def _power_lambda_max(A_host: sp.csr_matrix, d_inv: np.ndarray,
 
 def _smoother_arrays(kind: str, A_host: sp.csr_matrix, dtype, device,
                      cheby_args=None, weight: float = 1.0) -> Tuple:
-    """Chebyshev: (d_inv, θ, δ, ρ_k); (ℓ1-)Jacobi: (d_inv,).  Vectors are
-    tensors on ``device``; the Chebyshev scalars stay Python floats."""
+    """Chebyshev: (d_inv, θ, δ, ρ_k); (ℓ1-)Jacobi: (d_inv,); hybrid GS:
+    (d_inv, L_strict or None, U_strict or None).  Vectors and matrices are
+    on ``device``; the Chebyshev scalars stay Python floats."""
     def vec(a):
         return torch.as_tensor(a, dtype=dtype, device=device)
 
@@ -148,6 +163,19 @@ def _smoother_arrays(kind: str, A_host: sp.csr_matrix, dtype, device,
         theta, delta, rhos = cheby_coefficients(lam, fraction, order)
         return (vec(d_inv_np), float(theta), float(delta),
                 tuple(float(r) for r in rhos))
+    if kind in ("gs-fwd", "gs-bwd", "gs-sym"):
+        # hybrid GS: strict triangular parts + the diagonal; the cycle
+        # Jacobi-iterates (D + L) z = r
+        diag = A_host.diagonal()
+        d = vec(np.where(diag != 0, weight / diag, 1.0))
+        L = U = None
+        if kind in ("gs-fwd", "gs-sym"):
+            L = EllMatrix.from_csr(sp.tril(A_host, -1, format="csr"),
+                                   dtype=dtype, device=device)
+        if kind in ("gs-bwd", "gs-sym"):
+            U = EllMatrix.from_csr(sp.triu(A_host, 1, format="csr"),
+                                   dtype=dtype, device=device)
+        return (d, L, U)
     if kind == "jacobi":
         diag = A_host.diagonal()
         return (vec(np.where(diag != 0, weight / diag, 1.0)),)
@@ -155,6 +183,40 @@ def _smoother_arrays(kind: str, A_host: sp.csr_matrix, dtype, device,
         l1 = np.asarray(np.abs(A_host).sum(axis=1)).ravel()
         return (vec(np.where(l1 != 0, weight / l1, 1.0)),)
     raise _not_ported(f"smoother '{kind}'")
+
+
+def _fsai_smoother(A_l: sp.csr_matrix, fs, dtype, device) -> Tuple:
+    """(G, Gᵀ, ω) of the FSAI complex smoother on one level: adaptive FSAI
+    for algo types 1/3, else static with max_steps·max_step_size entries
+    per row; ω = 1/λmax(GᵀG·A) from eig_max_iters host power steps
+    (hypre's FSAI smoothing scale, ref fsai.c eig_max_iters)."""
+    from ..fsai import build_fsai, build_fsai_adaptive
+
+    if int(fs.algo_type) in (1, 3):
+        st = build_fsai_adaptive(A_l, max_steps=int(fs.max_steps),
+                                 max_step_size=int(fs.max_step_size),
+                                 kap_tolerance=float(fs.kap_tolerance),
+                                 dtype=dtype, device=device)
+    else:
+        st = build_fsai(A_l, max_nnz_row=int(fs.max_steps)
+                        * int(fs.max_step_size),
+                        threshold=float(fs.kap_tolerance), dtype=dtype,
+                        device=device)
+    omega = 1.0
+    eig_iters = int(fs.eig_max_iters)
+    if eig_iters > 0:
+        Gh = st.G.to_csr()
+        v = np.random.default_rng(0).standard_normal(A_l.shape[0])
+        lam = 1.0
+        for _ in range(eig_iters):
+            w = Gh.T @ (Gh @ (A_l @ v))
+            lam = float(np.linalg.norm(w))
+            if lam == 0:
+                lam = 1.0
+                break
+            v = w / lam
+        omega = 1.0 / lam
+    return (st.G, st.GT, omega)
 
 
 def _check_ported(amg_args) -> Tuple[str, str]:
@@ -168,16 +230,14 @@ def _check_ported(amg_args) -> Tuple[str, str]:
     for kind in (down_kind, up_kind):
         if kind not in PORTED_SMOOTHERS:
             raise _not_ported(f"smoother '{kind}'")
-    # Chebyshev keeps its own schedule under both options; the point-wise
-    # smoothers would switch to the F/C-masked ones
-    pointwise = {down_kind, up_kind} - {"chebyshev"}
-    if int(rlx.points) == 1 and pointwise:
+    # Chebyshev keeps its own schedule under both options; every other
+    # kind switches to the F/C-masked AIR schedule, and (ℓ1-)Jacobi to C/F
+    # relaxation (hybrid GS keeps its own order)
+    kinds = {down_kind, up_kind}
+    if int(rlx.points) == 1 and kinds - {"chebyshev"}:
         raise _not_ported("relaxation.points=air (F/C schedule)")
-    if int(rlx.order) == 1 and pointwise:
+    if int(rlx.order) == 1 and kinds & {"jacobi", "l1-jacobi"}:
         raise _not_ported("relaxation.order=1 (C/F relaxation)")
-    if int(amg_args.smoother.num_levels) > 0 \
-            and int(amg_args.smoother.type) in (4, 5, 7, 8, 9):
-        raise _not_ported("complex smoother (FSAI)")
     if int(amg_args.aggressive.num_levels) > 0:
         raise _not_ported("aggressive coarsening")
     if int(amg_args.interpolation.restriction_type) != 0:
@@ -217,6 +277,11 @@ def setup_hierarchy(A_host: sp.csr_matrix, amg_args,
     post = int(rlx.up_sweeps) if int(rlx.up_sweeps) >= 0 else num_sweeps
     weight = float(rlx.weight)
     num_functions = int(csn.num_functions)
+    # complex smoother on the finest levels (ref: amg.c:441-457)
+    fsai_levels = (int(amg_args.smoother.num_levels)
+                   if int(amg_args.smoother.type) in FSAI_SMOOTHER_TYPES
+                   else 0)
+    fsai_sweeps = max(1, int(amg_args.smoother.num_sweeps))
 
     def smoothers(A_l):
         sm = _smoother_arrays(kind, A_l, dtype, device, rlx.chebyshev,
@@ -256,13 +321,19 @@ def setup_hierarchy(A_host: sp.csr_matrix, amg_args,
 
         E = (fine_matrix if lvl == 0 and fine_matrix is not None
              else EllMatrix.from_csr(A_l, dtype=dtype, device=device))
-        sm, up_k, up_sm = smoothers(A_l)
+        if lvl < fsai_levels:
+            sm = _fsai_smoother(A_l, amg_args.smoother.fsai, dtype, device)
+            lvl_kind, lvl_pre, lvl_post = "fsai", fsai_sweeps, fsai_sweeps
+            up_k = up_sm = None
+        else:
+            sm, up_k, up_sm = smoothers(A_l)
+            lvl_kind, lvl_pre, lvl_post = kind, pre, post
         levels.append(AMGLevel(
             A=E,
             P=EllMatrix.from_csr(P, dtype=dtype, device=device),
             R=EllMatrix.from_csr(R, dtype=dtype, device=device),
-            smooth_arrays=sm, smoother=kind,
-            pre_sweeps=pre, post_sweeps=post,
+            smooth_arrays=sm, smoother=lvl_kind,
+            pre_sweeps=lvl_pre, post_sweeps=lvl_post,
             up_smoother=up_k, up_arrays=up_sm,
         ))
         if func_l is not None:

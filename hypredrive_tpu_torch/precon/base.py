@@ -38,23 +38,29 @@ class NonePrecon(Preconditioner):
 
 
 # preconditioners of the JAX package this package has not ported yet
-NOT_PORTED = ("ilu", "fsai", "schwarz", "ams", "ads")
+NOT_PORTED = ("ams", "ads")
 
 
 def create_precon(precon_config, input_args=None) -> Preconditioner:
     """ref: hypredrv_PreconCreate dispatch (precon.c:461-563)."""
     from .amg import AMGPrecon
     from .chebyshev import ChebyshevPrecon
+    from .fsai import FSAIPrecon
+    from .ilu import ILUPrecon
     from .jacobi import GaussSeidelPrecon, JacobiPrecon
     from .mgr import MGRPrecon
+    from .schwarz import SchwarzPrecon
 
     registry = {
         "none": NonePrecon,
         "jacobi": JacobiPrecon,
         "gauss-seidel": GaussSeidelPrecon,
         "chebyshev": ChebyshevPrecon,
+        "ilu": ILUPrecon,
+        "fsai": FSAIPrecon,
         "amg": AMGPrecon,
         "mgr": MGRPrecon,
+        "schwarz": SchwarzPrecon,
     }
     method = precon_config.method
     cls = registry.get(method)

@@ -2,15 +2,15 @@
 
 Counterpart of ``hypredrive_tpu/precon/components.py``.  MGR's
 F-relaxation, global relaxation and coarsest-level solver are each a
-component: none / (ℓ1-)Jacobi / Chebyshev / AMG / dense direct / nested
-Krylov / nested MGR (ref: src/internal/mgr.c:68-365 wrapper registry +
+component: none / (ℓ1-)Jacobi / Chebyshev / AMG / ILU / FSAI / Schwarz /
+dense direct / nested Krylov / nested MGR (ref: src/internal/mgr.c:68-365
+wrapper registry +
 include/internal/krylov.h nested solvers).  A component is (kind, state):
 :func:`build_component` sets it up on the host and uploads it to the
 device, :func:`apply_component` applies it there.
 
 The name mapping is the JAX package's: the sequential Gauss-Seidel family
-maps to ℓ1-Jacobi, ``blk-jacobi`` to point Jacobi.  ILU, FSAI and Schwarz
-components raise a typed "not yet ported" error.
+maps to ℓ1-Jacobi, ``blk-jacobi`` to point Jacobi.
 """
 
 from __future__ import annotations
@@ -21,16 +21,10 @@ from typing import Optional, Tuple
 import numpy as np
 import scipy.sparse as sp
 import torch
+from torch.profiler import record_function
 
 from ..core.errors import ErrorCode, HypredrvError
 from ..ops.device_matrix import EllMatrix
-
-NOT_PORTED = ("ilu", "fsai", "schwarz")
-
-
-def _not_ported(kind: str) -> HypredrvError:
-    return HypredrvError(f"MGR component '{kind}' is not yet ported to "
-                         "hypredrive_tpu_torch", ErrorCode.NOT_IMPLEMENTED)
 
 
 def apply_component(kind: str, state, r):
@@ -49,6 +43,18 @@ def apply_component(kind: str, state, r):
         from .amg.cycle import amg_apply
 
         return amg_apply(state, r)
+    if kind == "ilu":
+        from .ilu import ilu_apply
+
+        return ilu_apply(state, r)
+    if kind == "fsai":
+        from .fsai import fsai_apply
+
+        return fsai_apply(state, r)
+    if kind == "schwarz":
+        from .schwarz import schwarz_apply
+
+        return schwarz_apply(state, r)
     if kind == "dense":
         return torch.mv(state, r)
     if kind == "krylov":
@@ -73,12 +79,17 @@ def build_component(kind_config, A_host: sp.csr_matrix, dtype,
 
     ``kind_config`` may be a string name, an int code, or a nested map
     like ``{amg: {...}}`` / ``{krylov: {...}}`` (ref: mgr.c f_relaxation
-    forms).
+    forms).  A ``hypredrv::component_<name>`` profiler span times it.
     """
-    from ..config.sections import (AMG_SCHEMA, CHEBY_SCHEMA, MGR_KRYLOV_SCHEMA,
-                                   MGR_SCHEMA)
-
     name, sub = _normalize_kind(kind_config)
+    with record_function(f"hypredrv::component_{name}"):
+        return _build(name, sub, A_host, dtype, dofmap, device)
+
+
+def _build(name, sub, A_host, dtype, dofmap, device):
+    from ..config.sections import (AMG_SCHEMA, CHEBY_SCHEMA, FSAI_SCHEMA,
+                                   ILU_SCHEMA, MGR_KRYLOV_SCHEMA, MGR_SCHEMA,
+                                   SCHWARZ_SCHEMA)
 
     if name in ("none", ""):
         return ("none", None)
@@ -98,8 +109,32 @@ def build_component(kind_config, A_host: sp.csr_matrix, dtype,
         args = AMG_SCHEMA.parse(sub or {}, "amg", [])
         return ("amg", setup_hierarchy(A_host, args, dtype=dtype,
                                        device=device, dof_func=dofmap))
-    if name in NOT_PORTED:
-        raise _not_ported(name)
+    if name == "ilu":
+        from .ilu import build_ilu_state
+
+        args = ILU_SCHEMA.parse(sub or {}, "ilu", [])
+        return ("ilu", build_ilu_state(A_host, args, dtype, device))
+    if name == "fsai":
+        from .fsai import build_fsai
+
+        args = FSAI_SCHEMA.parse(sub or {}, "fsai", [])
+        budget = min(int(args.max_steps) * int(args.max_step_size),
+                     int(args.max_nnz_row))
+        return ("fsai", build_fsai(A_host, max_nnz_row=max(1, budget),
+                                   threshold=float(args.threshold),
+                                   dtype=dtype, device=device))
+    if name == "schwarz":
+        from .schwarz import build_schwarz
+
+        args = SCHWARZ_SCHEMA.parse(sub or {}, "schwarz", [])
+        # ras-* variants = restricted additive Schwarz (ref vocab:
+        # schwarz.c:44-70; 10/20/30/40 = ras-iluk/ilut/amg/spdirect,
+        # 11/21/31/41 = additive)
+        return ("schwarz", build_schwarz(
+            A_host, overlap=max(0, int(args.overlap)),
+            restricted=int(args.variant) in (10, 20, 30, 40),
+            relax_weight=float(args.relax_weight), dtype=dtype,
+            device=device))
     if name in ("spdirect", "ge", "ge-piv", "ge-inv", "lu_piv", "lu_inv"):
         dense = np.asarray(A_host.todense(), dtype=np.float64)
         try:

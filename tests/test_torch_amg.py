@@ -150,12 +150,12 @@ def test_cycle_matches(matrix, variant):
 
 
 @pytest.mark.parametrize("overrides,what", [
-    ({"relaxation": {"type": 3}}, "smoother 'gs-fwd'"),
+    ({"relaxation": {"type": 3, "points": 1}}, "F/C schedule"),
     ({"relaxation": {"down_type": 18, "up_type": 18, "order": 1}},
      "C/F relaxation"),
     ({"aggressive": {"num_levels": 1}}, "aggressive coarsening"),
     ({"interpolation": {"restriction_type": 1}}, "AIR restriction"),
-    ({"smoother": {"type": 5, "num_levels": 1}}, "FSAI"),
+    ({"relaxation": {"type": 0, "order": 1}}, "C/F relaxation"),
 ])
 def test_unported_options_raise(overrides, what):
     with pytest.raises(HypredrvError, match="not yet ported") as exc:

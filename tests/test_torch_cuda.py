@@ -183,3 +183,56 @@ def test_krylov_mgr_on_card_matches_cpu(dev, solver, iters):
     if solver != "bicgstab":   # BiCGSTAB's history is chaotic here
         np.testing.assert_allclose(gpu.res_history[:iters + 1],
                                    cpu.res_history[:iters + 1], rtol=1e-8)
+
+
+@pytest.mark.parametrize("itype", ["bj-ilu0", "bj-ilut", "gmres-iluk",
+                                   "nsh-iluk", "ras-iluk"])
+def test_ilu_apply_on_card_matches_cpu(dev, itype):
+    """Each ILU family set up for the card and for the CPU on multiphys2k:
+    one apply on the same vector agrees to float64 rounding (rel 1e-12)."""
+    from hypredrive_tpu_torch.config.sections import ILU_SCHEMA
+    from hypredrive_tpu_torch.precon.ilu import build_ilu_state, ilu_apply
+
+    A, _ = _multiphys2k()
+    args = ILU_SCHEMA.parse({"type": itype}, "ilu", [])
+    st_gpu = build_ilu_state(A, args, torch.float64, dev)
+    st_cpu = build_ilu_state(A, args, torch.float64)
+    r = np.random.default_rng(8).standard_normal(A.shape[0])
+    n_dia = dia_spmv.launches
+    z = ilu_apply(st_gpu, torch.tensor(r, device=dev)).cpu()
+    if itype != "ras-iluk":          # RAS is gathers and one batched solve
+        assert dia_spmv.launches > n_dia
+    assert _close(z, ilu_apply(st_cpu, torch.tensor(r)), torch.float64)
+
+
+# examples/ex2.yml's AMG (forward/backward hybrid GS, FSAI on level 0) and
+# ex8's symmetric hybrid GS
+AMG_SMOOTHERS = {
+    "ex2": {"coarsening": {"type": "pmis", "rand_seed": 7919},
+            "interpolation": {"max_nnz_row": 4},
+            "relaxation": {"down_type": "forward-hl1gs",
+                           "up_type": "backward-hl1gs"},
+            "smoother": {"type": "fsai", "num_levels": 1, "fsai": {
+                "max_step_size": 1, "eig_max_iters": 4,
+                "kap_tolerance": 1e-2}}},
+    "gs_sym": {"relaxation": {"type": 8, "num_sweeps": 2}},
+}
+
+
+@pytest.mark.parametrize("name", sorted(AMG_SMOOTHERS))
+def test_amg_gs_fsai_cycle_on_card_matches_cpu(dev, name):
+    from hypredrive_tpu_torch.config.sections import AMG_SCHEMA
+    from hypredrive_tpu_torch.precon.amg.cycle import amg_apply
+    from hypredrive_tpu_torch.precon.amg.hierarchy import setup_hierarchy
+
+    A = laplacian_3d_7pt(24)
+    args = AMG_SCHEMA.parse(AMG_SMOOTHERS[name], "amg", [])
+    st_gpu = setup_hierarchy(A, args, torch.float64, dev)
+    st_cpu = setup_hierarchy(A, args, torch.float64)
+    assert {lv.smoother for lv in st_gpu.levels} & {"fsai", "gs-fwd",
+                                                   "gs-sym"}
+    r = np.random.default_rng(9).standard_normal(A.shape[0])
+    n_dia, n_csr = dia_spmv.launches, csr_spmv.launches
+    z = amg_apply(st_gpu, torch.tensor(r, device=dev)).cpu()
+    assert dia_spmv.launches > n_dia and csr_spmv.launches > n_csr
+    assert _close(z, amg_apply(st_cpu, torch.tensor(r)), torch.float64)

@@ -34,7 +34,6 @@ from hypredrive_tpu.precon.mgr import mgr_apply as jax_mgr_apply
 from hypredrive_tpu.precon.mgr import setup_mgr as jax_setup_mgr
 from hypredrive_tpu_torch import convert
 from hypredrive_tpu_torch.config.sections import MGR_SCHEMA
-from hypredrive_tpu_torch.core.errors import ErrorCode, HypredrvError
 from hypredrive_tpu_torch.io import ij
 from hypredrive_tpu_torch.ops.csr import multiphysics_fv_system
 from hypredrive_tpu_torch.precon.components import (apply_component,
@@ -181,6 +180,9 @@ COMPONENTS = {
                           "preconditioner": "l1-jacobi"}},
     "mgr": {"mgr": {"level": {0: {"f_dofs": [2]}},
                     "coarsest_level": "spdirect"}},
+    "ilu": {"ilu": {"type": "bj-ilu0"}},
+    "fsai": "fsai",
+    "schwarz": {"schwarz": {"overlap": 2}},
 }
 
 
@@ -198,11 +200,3 @@ def test_component_matches_jax(name):
     _close(apply_component(kj, convert.component_state(kj, sj),
                            torch.tensor(r)).numpy(), zj)
 
-
-@pytest.mark.parametrize("name", ["ilu", "fsai", "schwarz"])
-def test_unported_components_raise(name):
-    A, dofmap = multiphysics_fv_system(3, 3)
-    with pytest.raises(HypredrvError, match=f"'{name}' is not yet ported") \
-            as exc:
-        build_component(name, A, torch.float64, dofmap=dofmap)
-    assert exc.value.code == ErrorCode.NOT_IMPLEMENTED

@@ -134,8 +134,8 @@ def test_default_policy_needs_cuda():
         hypredrive_tpu_torch.solve(options=opts)
 
 
-@pytest.mark.parametrize("section,value", [("preconditioner", "fsai"),
-                                           ("preconditioner", "ilu")])
+@pytest.mark.parametrize("section,value", [("preconditioner", "ams"),
+                                           ("preconditioner", "ads")])
 def test_unported_methods_raise(section, value):
     opts = {"general": {"exec_policy": "host"},
             "linear_system": {"generate": {"kind": "laplacian_7pt",
