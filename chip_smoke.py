@@ -13,7 +13,13 @@ Phases (any failure exits non-zero and prints no result line):
    of the 128³ solve: the fine-grid DIA operator, and the CSR remainders of
    P, R and the first coarse A of its AMG hierarchy; float32 (rel 1e-5) and
    float64 (rel 1e-12).  Kernel and plain times from CUDA events over
-   back-to-back calls, and device times per call from torch.profiler.
+   back-to-back calls; device times per call from CUDA-graph replay (the
+   kernels, the library call) and torch.profiler (the plain versions); for
+   each shape the bound (least bytes over 3.35 TB/s) and the device time of
+   one library call computing the same product (``torch.sparse_csr_tensor
+   @ x``, cuSPARSE; the DIA part converted to CSR), timed here and used
+   nowhere in the port.  The CSR kernel must give bit-identical y on a
+   repeat launch, and its tile size is swept at A1.
 3. The solve paths, each with both kernels' launch counters zeroed just
    before it and read just after; each must launch the kernels it runs:
    - ex1: examples/ex1.yml through ``hypredrive_tpu_torch.cli`` in float64,
@@ -55,14 +61,21 @@ Phases (any failure exits non-zero and prints no result line):
      reused solve.
 4. Kernels against their plain versions at the MGR shapes of mgr_64 (level
    0 P and R, the level 1 operator, the coarsest operator), float64 (rel
-   1e-12), with the CSR kernel's lanes-per-row choice swept on P and R; and
-   at seq_64's ILU shapes (the level-1 L and U factors).
+   1e-12), with the CSR kernel's tile size swept on P and R; and at seq_64's
+   shapes (the level-1 ILU L and U factors, the first coarse operator of
+   the nested F-relaxation AMG).
 
 Prints the kernel table as one JSON line, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``.  Details go to
 ``build/chip_smoke.json``.
+
+``--baseline-csr FILE`` also builds FILE, an earlier ``csr_spmv.cu`` with
+the row-group C interface (lanes per row as its argument), into
+``build/csr_baseline/`` and times it at every CSR shape beside the current
+kernel, in the order earlier, current, current, earlier.
 """
 
+import ctypes
 import json
 import os
 import subprocess
@@ -160,6 +173,11 @@ JAX_RELRES_SEQ64 = (9.859454860586217e-07, 7.770520952997071e-07,
 # objects one phase hands to a later one (the mgr_64 and seq_64 operators)
 KEEP = {}
 
+HBM_TB_S = 3.35   # H100 SXM device-memory rate (NVIDIA data sheet)
+
+# the earlier CSR kernel to time beside the current one (--baseline-csr)
+BASELINE = {}
+
 
 def drift_sequence(nx, count, seed=11):
     """A sequence of Newton systems from one time-stepping run: the
@@ -219,7 +237,8 @@ def device_ms(fn, reps=20):
     """Device time of one call of fn: the sum of its kernels' device times
     under torch.profiler, per call.  Unlike back-to-back CUDA events it
     excludes the gaps while the host launches, which bound event times of
-    kernels shorter than the host's launch period."""
+    kernels shorter than the host's launch period.  Used for the plain
+    versions, which a CUDA graph cannot capture."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -235,6 +254,37 @@ def device_ms(fn, reps=20):
              for e in prof.key_averages()
              if e.device_type == DeviceType.CUDA)
     return us / 1e3 / reps
+
+
+def replay_ms(fn, reps=20, replays=5):
+    """Device time of one call of fn: a CUDA graph of ``reps`` calls,
+    replayed ``replays`` times between two CUDA events.  The calls run back
+    to back on the device with no host gaps, so kernels shorter than the
+    host's launch period are timed too.  (After the solve phases the
+    profiler was seen to drop kernel records, so it times only what a
+    graph cannot capture.)"""
+    import torch
+
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / (replays * reps)
 
 
 def phase_env(report):
@@ -273,9 +323,81 @@ def spmv_bytes(kind, E, itemsize):
             + (nr + nc) * itemsize)
 
 
+def dia_as_csr(dia, offsets, n_cols):
+    """(crow, col, values) int32/int32/dtype of a (D, n_rows) DIA part, the
+    entries inside the columns, row by row in offset order."""
+    import torch
+
+    n_rows = dia.shape[1]
+    offs = torch.tensor(offsets, device=dia.device)
+    cols = torch.arange(n_rows, device=dia.device)[:, None] + offs[None, :]
+    ok = (cols >= 0) & (cols < n_cols)
+    crow = torch.zeros(n_rows + 1, dtype=torch.int64, device=dia.device)
+    crow[1:] = torch.cumsum(ok.sum(dim=1), 0)
+    return crow.int(), cols[ok].int(), dia.t()[ok].contiguous()
+
+
+def library_spmv(crow, col, values, shape):
+    """One PyTorch call computing the same product: a sparse CSR tensor
+    times x (cuSPARSE).  The yardstick of library_ms; the port never calls
+    it."""
+    import torch
+
+    A = torch.sparse_csr_tensor(crow, col, values, size=shape,
+                                check_invariants=False)
+    return lambda x: torch.mv(A, x)
+
+
+def load_baseline(src):
+    """Build an earlier csr_spmv.cu (row-group C interface) into
+    build/csr_baseline/ and load it."""
+    from hypredrive_tpu_torch.ops import kernels
+
+    out_dir = os.path.join(REPO, "build", "csr_baseline")
+    os.makedirs(out_dir, exist_ok=True)
+    so = os.path.join(out_dir, "libcsr_baseline.so")
+    proc = subprocess.run([kernels.find_nvcc(), *kernels.NVCC_FLAGS, "-o",
+                           so, src], capture_output=True, text=True,
+                          timeout=600)
+    check(proc.returncode == 0, f"baseline build: {proc.stderr[-2000:]}")
+    lib = ctypes.CDLL(so)
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    for suffix in ("f32", "f64"):
+        fn = getattr(lib, f"hdtt_csr_spmv_{suffix}")
+        fn.restype = ctypes.c_int
+        fn.argtypes = [vp, vp, vp, vp, vp, i64, i32, i32, vp]
+    BASELINE["lib"] = lib
+
+
+def baseline_spmv(E, data):
+    """The earlier row-group kernel on E's CSR part, with the lanes per row
+    it chose (the power of two ≥ the mean row length, in 2..32)."""
+    import torch
+
+    lib = BASELINE["lib"]
+    nr = E.shape[0]
+    g = 2
+    while g < 32 and g < data.numel() / max(1, nr):
+        g *= 2
+    fn = (lib.hdtt_csr_spmv_f32 if data.dtype == torch.float32
+          else lib.hdtt_csr_spmv_f64)
+
+    def run(x):
+        y = torch.empty(nr, dtype=x.dtype, device=x.device)
+        rc = fn(E.indptr.data_ptr(), E.indices.data_ptr(), data.data_ptr(),
+                x.data_ptr(), y.data_ptr(), nr, g, 0,
+                torch.cuda.current_stream().cuda_stream)
+        check(rc == 0, f"baseline csr_spmv: CUDA error {rc}")
+        return y
+    return run
+
+
 class KernelChecks:
     """Each kernel against its plain version on the same inputs: max
-    error, and kernel and plain times from CUDA events."""
+    error; kernel, plain and library times from back-to-back CUDA events;
+    device times of the kernel and the library call from CUDA-graph replay
+    and of the plain version from the profiler; the bound from the least
+    bytes."""
 
     TOL = {"float32": 1e-5, "float64": 1e-12}
 
@@ -285,7 +407,8 @@ class KernelChecks:
         self.rng = np.random.default_rng(0)
         self.rows = []
 
-    def compare(self, name, shape_name, dt, run, plain, n_x, nbytes):
+    def compare(self, name, shape_name, dt, run, plain, n_x, nbytes,
+                library, baseline=None):
         import numpy as np
         import torch
 
@@ -294,29 +417,59 @@ class KernelChecks:
                             device="cuda")
         y = run(x)
         yp = plain(x)
+        y_again = run(x)
         torch.cuda.synchronize()
         err = float((y - yp).abs().max())
         scale = float(yp.abs().max()) or 1.0
         rel = err / scale
+        repeat_equal = bool(torch.equal(y, y_again))
         ms = time_ms(lambda: run(x))
         plain_ms = time_ms(lambda: plain(x))
-        dev = device_ms(lambda: run(x))
         plain_dev = device_ms(lambda: plain(x))
+        bound = nbytes / (HBM_TB_S * 1e12) * 1e3
         row = {"kernel": name, "shape": shape_name, "dtype": dtn,
                "max_abs_err": err, "max_rel_err": rel,
-               "tol_rel": self.TOL[dtn], "ms": ms, "plain_ms": plain_ms,
-               "device_ms": dev, "plain_device_ms": plain_dev,
-               "bytes": nbytes,
-               # a profiler that saw no kernel leaves the event time
-               "tb_s": nbytes / ((dev if dev > 0 else ms) * 1e-3) / 1e12}
+               "tol_rel": self.TOL[dtn], "repeat_bit_identical": repeat_equal,
+               "ms": ms, "plain_ms": plain_ms, "plain_device_ms": plain_dev,
+               "bytes": nbytes, "bound_ms": bound, "bound_by": "bytes"}
+        if baseline is not None:
+            # earlier, current, current, earlier
+            base = [replay_ms(lambda: baseline(x))]
+            dev = (replay_ms(lambda: run(x)) + replay_ms(lambda: run(x))) / 2
+            base.append(replay_ms(lambda: baseline(x)))
+            yb = baseline(x)
+            row["baseline_device_ms"] = sum(base) / 2
+            row["baseline_rel_err"] = float((yb - yp).abs().max()) / scale
+        else:
+            dev = replay_ms(lambda: run(x))
+        row["device_ms"] = dev
+        row["bound_share"] = bound / row["device_ms"]
+        row["tb_s"] = nbytes / (row["device_ms"] * 1e-3) / 1e12
+        try:
+            lib_run = library()
+            yl = lib_run(x)
+            torch.cuda.synchronize()
+            row["library_rel_err"] = float((yl - yp).abs().max()) / scale
+            row["library_ms"] = replay_ms(lambda: lib_run(x))
+            del lib_run, yl
+        except RuntimeError as exc:   # no such call, or not capturable
+            row["library_ms"] = None
+            row["library_error"] = str(exc)[:200]
         self.rows.append(row)
+        lib_txt = ("n/a" if row["library_ms"] is None
+                   else f"{row['library_ms']:.4f}")
+        base_txt = (f", PR 3 kernel {row['baseline_device_ms']:.4f}"
+                    if "baseline_device_ms" in row else "")
         print(f"  {name:9s} {shape_name:38s} {dtn:8s} rel {rel:.3e}  "
               f"events: kernel {ms:.4f} plain {plain_ms:.4f} ms; device: "
-              f"kernel {dev:.4f} plain {plain_dev:.4f} ms, "
-              f"{row['tb_s']:.2f} TB/s")
+              f"kernel {row['device_ms']:.4f}{base_txt} plain "
+              f"{plain_dev:.4f} library {lib_txt} bound {bound:.4f} ms "
+              f"({100 * row['bound_share']:.1f}%), {row['tb_s']:.2f} TB/s")
         check(np.isfinite(rel) and rel <= self.TOL[dtn],
               f"{name} {shape_name} {dt}: rel err {rel:.3e} > "
               f"{self.TOL[dtn]}")
+        check(name != "csr_spmv" or repeat_equal,
+              f"{name} {shape_name} {dt}: a repeat launch differs")
         return row
 
     def matrix(self, shape_name, E, dt):
@@ -334,16 +487,53 @@ class KernelChecks:
             self.compare("dia_spmv", f"{shape_name} D={len(offs)}", dt,
                          lambda x: dia_spmv(dia, offs, x, nc),
                          lambda x: dia_spmv_plain(dia, offs, x, nc), nc,
-                         spmv_bytes("dia_spmv", E, size))
+                         spmv_bytes("dia_spmv", E, size),
+                         lambda: library_spmv(*dia_as_csr(dia, offs, nc),
+                                              E.shape))
         if E.data is not None:
             data = E.data.to(dt)
             self.compare("csr_spmv", f"{shape_name} nnz={E.data.numel()}",
                          dt,
                          lambda x: csr_spmv(E.indptr, E.indices, data, x, nr,
-                                            E.group),
+                                            E.tiles),
                          lambda x: csr_spmv_plain(E.indptr, E.indices, data,
                                                   x, nr), nc,
-                         spmv_bytes("csr_spmv", E, size))
+                         spmv_bytes("csr_spmv", E, size),
+                         lambda: library_spmv(E.indptr.int(), E.indices,
+                                              data, E.shape),
+                         baseline_spmv(E, data) if BASELINE else None)
+
+
+def tile_sweep(shape_name, E):
+    """Device ms (graph replay) and event ms of the CSR kernel on E's
+    remainder (float64) at each tile size, max_rows = min(TILE_ROWS,
+    tile_nnz); the default is what the device matrix builds."""
+    import torch
+    from hypredrive_tpu_torch.ops.csr_spmv import (TILE_NNZ, TILE_ROWS,
+                                                   csr_spmv, csr_tiles)
+
+    x = torch.ones(E.shape[1], dtype=torch.float64, device="cuda")
+    nr = E.shape[0]
+    indptr = E.indptr.cpu().numpy()
+    out = []
+    for tile_nnz in (128, 256, 512, 1024):
+        max_rows = min(TILE_ROWS, tile_nnz)
+        tiles = torch.as_tensor(csr_tiles(indptr, tile_nnz, max_rows),
+                                device="cuda")
+        def run():
+            return csr_spmv(E.indptr, E.indices, E.data, x, nr, tiles)
+        ms = replay_ms(run)
+        event_ms = time_ms(run)
+        chosen = (tile_nnz, max_rows) == (TILE_NNZ, TILE_ROWS)
+        out.append({"shape": shape_name, "tile_nnz": tile_nnz,
+                    "max_rows": max_rows, "tiles": tiles.shape[1] - 1,
+                    "device_ms": ms, "event_ms": event_ms, "chosen": chosen,
+                    "mean_row_nnz": E.data.numel() / nr})
+        print(f"  csr_spmv {shape_name} tile {tile_nnz:4d} entries / "
+              f"{max_rows:3d} rows ({tiles.shape[1] - 1} tiles): device "
+              f"{ms:.4f} ms, events {event_ms:.4f} ms"
+              f"{'  (chosen)' if chosen else ''}")
+    return out
 
 
 def phase_kernels(report):
@@ -376,6 +566,7 @@ def phase_kernels(report):
                                lv1.A)):
             checks.matrix(shape_name, E, dt)
     report["kernel_checks"] = checks.rows
+    report["csr_tile_sweep"] = tile_sweep("A1", lv1.A)
     del state, A
     torch.cuda.empty_cache()
 
@@ -459,8 +650,12 @@ def run_laplacian(nx, dtype):
     # a second solve on the same hierarchy: the first one also pays the
     # caching allocator's first allocations at these sizes
     drv.reset_initial_guess()
+    n0 = {k: f.launches for k, f in launch_counters().items()}
     out["solve_warm_s"] = drv.linear_solver_apply().solve_time
-    print(f"  second solve: {out['solve_warm_s']:.4f} s")
+    out["warm_launches"] = {k: f.launches - n0[k]
+                            for k, f in launch_counters().items()}
+    print(f"  second solve: {out['solve_warm_s']:.4f} s, kernel launches "
+          f"{out['warm_launches']}")
     out["profile"] = profile_solve(drv)
     drv.destroy()
     return out
@@ -495,12 +690,18 @@ def profile_solve(drv):
     n_dev = sum(e.count for e in kern)
     top = [{"name": e.key[:80], "ms": dev_us(e) / 1e3, "count": e.count}
            for e in sorted(kern, key=dev_us, reverse=True)[:8]]
+    # the hand-written kernels' device time in this solve
+    by_kernel = {name: {"ms": sum(dev_us(e) for e in kern
+                                  if name in e.key) / 1e3,
+                        "count": sum(e.count for e in kern if name in e.key)}
+                 for name in KERNELS}
     print(f"  profiled solve: wall {wall:.4f} s, device busy {busy:.4f} s "
           f"({100 * busy / wall:.1f}%), {n_dev} device items")
     for t in top:
         print(f"    {t['ms']:9.3f} ms  x{t['count']:5d}  {t['name']}")
+    print(f"  hand-written kernels: {by_kernel}")
     return {"wall_s": wall, "device_busy_s": busy, "device_items": n_dev,
-            "top": top}
+            "top": top, "by_kernel": by_kernel}
 
 
 def phase_64(report):
@@ -691,9 +892,8 @@ def phase_krylov_variants(report):
 
 def phase_mgr_kernels(report):
     """Each kernel against its plain version at mgr_64's MGR shapes, with
-    the CSR kernel's lanes per row swept on P0 and R0."""
+    the CSR kernel's tile size swept on P0 and R0."""
     import torch
-    from hypredrive_tpu_torch.ops.csr_spmv import csr_spmv
 
     state = KEEP.pop("mgr64_state")
     lv0, lv1 = state.levels
@@ -705,20 +905,10 @@ def phase_mgr_kernels(report):
             (f"MGR A1 {lv1.A.shape[0]}x{lv1.A.shape[1]}", lv1.A),
             (f"MGR coarsest A {A_c.shape[0]}x{A_c.shape[1]}", A_c)):
         checks.matrix(shape_name, E, torch.float64)
-    sweep = []
-    for shape_name, E in (("MGR P0", lv0.P), ("MGR R0", lv0.R)):
-        x = torch.ones(E.shape[1], dtype=torch.float64, device="cuda")
-        nr = E.shape[0]
-        for g in (2, 4, 8, 16, 32):
-            ms = device_ms(lambda: csr_spmv(E.indptr, E.indices, E.data, x,
-                                            nr, g))
-            sweep.append({"shape": shape_name, "group": g, "device_ms": ms,
-                          "chosen": g == E.group,
-                          "mean_row_nnz": E.data.numel() / nr})
-            print(f"  csr_spmv {shape_name} lanes/row {g:2d}: device "
-                  f"{ms:.4f} ms{'  (chosen)' if g == E.group else ''}")
     report["kernel_checks"].extend(checks.rows)
-    report["csr_group_sweep"] = sweep
+    for shape_name, E in (("MGR P0", lv0.P), ("MGR R0", lv0.R)):
+        report.setdefault("csr_tile_sweep", []).extend(
+            tile_sweep(shape_name, E))
     del state
     torch.cuda.empty_cache()
 
@@ -915,7 +1105,11 @@ def phase_seq64(report):
                 print(f"  warm solve of system {k}: "
                       f"{out['solve_warm_s']:.4f} s")
                 out["profile_reused"] = profile_solve(drv)
-                KEEP["seq64_ilu"] = drv.precon.state.levels[1].g_state
+                lv0, lv1 = drv.precon.state.levels
+                KEEP["seq64_ilu"] = lv1.g_state
+                check(lv0.f_kind == "amg", f"seq_64: level 0 F-relaxation "
+                                           f"is {lv0.f_kind}, not amg")
+                KEEP["seq64_frelax_A1"] = lv0.f_state.levels[1].A
             drv.precon_destroy()
         out["reuse_decisions"] = [s_["rebuilt"] for s_ in out["systems"]]
         drv.destroy()
@@ -945,16 +1139,19 @@ def phase_seq64(report):
 
 def phase_seq_kernels(report):
     """Each kernel against its plain version at the shapes of seq_64's
-    ILU sweeps (the level-1 L and U factors), float64 (rel 1e-12)."""
+    ILU sweeps (the level-1 L and U factors) and of the first coarse
+    operator of its nested F-relaxation AMG, float64 (rel 1e-12)."""
     import torch
 
     st = KEEP.pop("seq64_ilu")
+    A1 = KEEP.pop("seq64_frelax_A1")
     checks = KernelChecks()
     for shape_name, E in ((f"ILU L {st.L.shape[0]}x{st.L.shape[1]}", st.L),
-                          (f"ILU U {st.U.shape[0]}x{st.U.shape[1]}", st.U)):
+                          (f"ILU U {st.U.shape[0]}x{st.U.shape[1]}", st.U),
+                          (f"F-AMG A1 {A1.shape[0]}x{A1.shape[1]}", A1)):
         checks.matrix(shape_name, E, torch.float64)
     report["kernel_checks"].extend(checks.rows)
-    del st
+    del st, A1
     torch.cuda.empty_cache()
 
 
@@ -966,6 +1163,14 @@ KERNELS = {
                  "hypredrive_tpu/ops/pallas_spmv.py:85 (K3); "
                  "hypredrive_tpu/ops/pallas_spmv.py:216 (K4)"),
 }
+
+
+def launch_counters():
+    """The wrappers whose ``launches`` count kernel launches."""
+    from hypredrive_tpu_torch.ops.csr_spmv import csr_spmv
+    from hypredrive_tpu_torch.ops.dia_spmv import dia_spmv
+
+    return {"dia_spmv": dia_spmv, "csr_spmv": csr_spmv}
 
 
 # the solve paths: (name, phase, kernels each must launch); ex1-jacobi is
@@ -986,6 +1191,13 @@ PATHS = (("ex1", phase_ex1, BOTH), ("lap64", phase_64, BOTH),
 
 
 def main() -> int:
+    args = sys.argv[1:]
+    baseline_src = None
+    if args[:1] == ["--baseline-csr"] and len(args) == 2:
+        baseline_src = os.path.abspath(args[1])
+    elif args:
+        print("usage: chip_smoke.py [--baseline-csr FILE]", file=sys.stderr)
+        return 2
     sys.path.insert(0, REPO)
     os.chdir(REPO)
     import torch
@@ -994,8 +1206,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 1
-    from hypredrive_tpu_torch.ops.csr_spmv import csr_spmv
-    from hypredrive_tpu_torch.ops.dia_spmv import dia_spmv
+    counters = launch_counters()
 
     report = {}
     failures = []
@@ -1011,16 +1222,17 @@ def main() -> int:
         report.setdefault("phase_s", {})[name] = time.perf_counter() - t0
 
     run("env", phase_env)
+    if baseline_src and not failures:
+        run("baseline", lambda _: load_baseline(baseline_src))
     if not failures:
         run("kernels", phase_kernels)
-        launches = {"dia_spmv": 0, "csr_spmv": 0}
+        launches = {k: 0 for k in counters}
         for name, fn, kernels_run in PATHS:
             # each path's own count: zeroed just before, read just after
-            dia_spmv.launches = 0
-            csr_spmv.launches = 0
+            for f in counters.values():
+                f.launches = 0
             run(name, fn)
-            counts = {"dia_spmv": dia_spmv.launches,
-                      "csr_spmv": csr_spmv.launches}
+            counts = {k: f.launches for k, f in counters.items()}
             report.setdefault("launches_by_path", {})[name] = counts
             print(f"{name} kernel launches: {counts}")
             for k in kernels_run:
@@ -1047,21 +1259,27 @@ def main() -> int:
         return 1
 
     table = []
+    warm = report["lap128_f64"]["warm_launches"]
     for name, (source, replaces) in KERNELS.items():
         rows = [r for r in report["kernel_checks"] if r["kernel"] == name]
-        main_row = next(r for r in rows if r["dtype"] == "float64")
+        # the float64 shape that moves the most bytes
+        main_row = max((r for r in rows if r["dtype"] == "float64"),
+                       key=lambda r: r["bytes"])
         table.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": report["launches"][name],
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "max_rel_err": max(r["max_rel_err"] for r in rows),
-            "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
+            "ms": main_row["device_ms"], "plain_ms": main_row["plain_device_ms"],
+            "bound_ms": main_row["bound_ms"], "bound_by": "bytes",
+            "library_ms": main_row["library_ms"],
             "shape": f"{main_row['shape']} {main_row['dtype']}",
-            "shapes": [{k: r[k] for k in ("shape", "dtype", "ms",
-                                          "plain_ms", "device_ms",
-                                          "plain_device_ms", "max_rel_err",
-                                          "tb_s")}
-                       for r in rows],
+            "launches_warm_lap128_solve": warm[name],
+            "shapes": [{k: r.get(k) for k in (
+                "shape", "dtype", "device_ms", "ms", "plain_device_ms",
+                "plain_ms", "bound_ms", "bound_share", "library_ms",
+                "baseline_device_ms", "max_rel_err", "tb_s")}
+                for r in rows],
         })
     print(json.dumps({"kernels": table}))
     print(report["nvidia_smi"])

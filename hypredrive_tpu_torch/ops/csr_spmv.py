@@ -3,10 +3,13 @@
 Counterpart of ``hypredrive_tpu/ops/pallas_spmv.py``.  The CUDA kernel
 (``csrc/csr_spmv.cu``) replaces the f32 gather kernel (``_make_kernel`` /
 ``_gather_spmv_call``) and its double-single f64 variant (``_make_kernel_ds``
-/ ``_gather_spmv_call_ds``): Hopper gathers x per entry and has native
-``double``, so the (8, 128) pass plan and the split-f32 arithmetic are not
-carried over.  A group of 2-32 lanes owns a row; the kernel is bound by
-device-memory bytes, ``sizeof(T) + 4`` per entry plus the x gathers.
+/ ``_gather_spmv_call_ds_inner``): Hopper gathers x per entry and has
+native ``double``, so the (8, 128) pass plan and the split-f32 arithmetic
+are not carried over.  The kernel walks tiles of at most ``TILE_NNZ``
+entries and ``TILE_ROWS`` rows (:func:`csr_tiles`, built once per matrix on
+the host), copying each tile's spans into a shared-memory ring with
+asynchronous copies; it is bound by device-memory bytes, ``sizeof(T) + 4``
+per entry plus indptr, y and x once.
 
 :func:`csr_spmv` launches the kernel for a CUDA tensor and runs
 :func:`csr_spmv_plain` for a CPU tensor; ``csr_spmv.launches`` counts the
@@ -18,18 +21,42 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from . import kernels
 
+TILE_NNZ = 1024   # kTileNnz in csrc/csr_spmv.cu: most entries in a tile
+TILE_ROWS = 512   # kTileRows: most rows in a tile
 
-def group_size(nnz: int, n_rows: int) -> int:
-    """Lanes per row: the power of two ≥ the mean row length, in 2..32."""
-    mean = nnz / max(1, n_rows)
-    g = 2
-    while g < 32 and g < mean:
-        g *= 2
-    return g
+
+def csr_tiles(indptr, tile_nnz: int = TILE_NNZ,
+              max_rows: int = TILE_ROWS) -> np.ndarray:
+    """The kernel's tile table, int32 of shape (2, n_tiles + 1): the first
+    row and the first entry of each tile, then n_rows and nnz.
+
+    Greedy over the rows: a tile takes rows while it holds at most
+    ``tile_nnz`` entries and ``max_rows`` rows.  A row with more than
+    ``tile_nnz`` entries is a tile of its own (the kernel walks it in
+    chunks).  Every row lies in exactly one tile, in order.  The entries
+    are stored beside the rows so that the kernel reads its bounds without
+    a dependent load."""
+    if not (1 <= tile_nnz <= TILE_NNZ and 1 <= max_rows <= TILE_ROWS):
+        raise ValueError(f"csr_tiles: tile_nnz {tile_nnz} / max_rows "
+                         f"{max_rows} outside 1..{TILE_NNZ} / 1..{TILE_ROWS}")
+    indptr = np.asarray(indptr, dtype=np.int64)
+    n_rows = len(indptr) - 1
+    if max(n_rows, int(indptr[-1])) > np.iinfo(np.int32).max:
+        raise ValueError(f"csr_tiles: {n_rows} rows / {indptr[-1]} entries "
+                         "exceed int32")
+    starts = [0]
+    r = 0
+    while r < n_rows:
+        end = int(np.searchsorted(indptr, indptr[r] + tile_nnz,
+                                  side="right")) - 1
+        r = min(max(end, r + 1), r + max_rows, n_rows)
+        starts.append(r)
+    return np.stack([starts, indptr[starts]]).astype(np.int32)
 
 
 def csr_spmv_plain(indptr: torch.Tensor, indices: torch.Tensor,
@@ -43,7 +70,7 @@ def csr_spmv_plain(indptr: torch.Tensor, indices: torch.Tensor,
     return y.index_add_(0, rows, data * x[indices.long()])
 
 
-def _check(indptr, indices, data, x, n_rows, out):
+def _check(indptr, indices, data, x, n_rows, tiles, out):
     if indptr.dtype != torch.int64 or indices.dtype != torch.int32:
         raise TypeError("csr_spmv: indptr must be int64 and indices int32")
     if indptr.dim() != 1 or indptr.shape[0] != n_rows + 1:
@@ -54,7 +81,14 @@ def _check(indptr, indices, data, x, n_rows, out):
     if data.dtype != x.dtype or x.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"csr_spmv: dtypes {data.dtype}/{x.dtype}; "
                         "float32 or float64 and equal")
-    devs = {t.device for t in (indptr, indices, data, x)}
+    if tiles.dtype != torch.int32:
+        raise TypeError(f"csr_spmv: tiles must be int32, not {tiles.dtype}")
+    # rows and entries of each tile; each tile holds at least one row
+    if tiles.dim() != 2 or tiles.shape[0] != 2 or not (
+            min(n_rows, 1) + 1 <= tiles.shape[1] <= n_rows + 1):
+        raise ValueError(f"csr_spmv: tiles of shape {tuple(tiles.shape)} "
+                         f"for {n_rows} rows")
+    devs = {t.device for t in (indptr, indices, data, x, tiles)}
     if out is not None:
         if out.shape != (n_rows,) or out.dtype != x.dtype:
             raise ValueError("csr_spmv: out must be (n_rows,) of x's dtype")
@@ -64,27 +98,29 @@ def _check(indptr, indices, data, x, n_rows, out):
 
 
 def csr_spmv(indptr: torch.Tensor, indices: torch.Tensor,
-             data: torch.Tensor, x: torch.Tensor, n_rows: int, group: int,
+             data: torch.Tensor, x: torch.Tensor, n_rows: int,
+             tiles: torch.Tensor,
              out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """y = A_csr · x (or ``out += A_csr · x``); the CUDA kernel on a CUDA
-    tensor, else the plain version (CPU).  Column indices must lie in
-    ``[0, len(x))``: the device matrix guarantees it at construction."""
-    _check(indptr, indices, data, x, n_rows, out)
+    tensor, else the plain version (CPU).  ``tiles`` is
+    :func:`csr_tiles` of this ``indptr`` and column indices lie in
+    ``[0, len(x))``: the device matrix guarantees both at construction."""
+    _check(indptr, indices, data, x, n_rows, tiles, out)
     if x.device.type == "cpu":
         return csr_spmv_plain(indptr, indices, data, x, n_rows, out)
     if x.device.type != "cuda":
         raise ValueError(f"csr_spmv: unsupported device {x.device}")
-    tensors = (indptr, indices, data, x) + ((out,) if out is not None else ())
+    tensors = (indptr, indices, data, x, tiles) \
+        + ((out,) if out is not None else ())
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("csr_spmv: tensors must be contiguous")
-    if group not in (2, 4, 8, 16, 32):
-        raise ValueError(f"csr_spmv: group {group} not in 2..32 (power of 2)")
     y = torch.empty(n_rows, dtype=x.dtype, device=x.device) \
         if out is None else out
     fn = (kernels.lib().hdtt_csr_spmv_f32 if x.dtype == torch.float32
           else kernels.lib().hdtt_csr_spmv_f64)
     rc = fn(indptr.data_ptr(), indices.data_ptr(), data.data_ptr(),
-            x.data_ptr(), y.data_ptr(), n_rows, group, int(out is not None),
+            x.data_ptr(), y.data_ptr(), n_rows, tiles.data_ptr(),
+            tiles.shape[1] - 1, int(out is not None),
             torch.cuda.current_stream(x.device).cuda_stream)
     kernels.check(rc, "csr_spmv")
     csr_spmv.launches += 1

@@ -27,7 +27,7 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
-from .csr_spmv import csr_spmv, group_size
+from .csr_spmv import csr_spmv, csr_tiles
 from .dia_spmv import dia_spmv
 
 # diagonals covering at least this fraction of rows go to the DIA part
@@ -91,6 +91,8 @@ class EllMatrix:
     dia_data:  (D, n_rows), dia_data[i, r] = A[r, r + dia_offsets[i]]
     indptr/indices/data:  sorted CSR of the remaining entries
                           (int64 / int32 / dtype), None when there are none
+    tiles:     the CSR kernel's tile table of that remainder (int32,
+               ``ops/csr_spmv.py::csr_tiles``)
     dense:     (n_rows, n_cols) for tiny operators; then nothing else is set
     """
 
@@ -103,7 +105,7 @@ class EllMatrix:
     indptr: Optional[torch.Tensor] = None
     indices: Optional[torch.Tensor] = None
     data: Optional[torch.Tensor] = None
-    group: int = 2      # CSR kernel lanes per row
+    tiles: Optional[torch.Tensor] = None
     dense: Optional[torch.Tensor] = None
 
     # -- construction -----------------------------------------------------
@@ -140,7 +142,7 @@ class EllMatrix:
             E.indices = torch.as_tensor(R.indices.astype(np.int32),
                                         device=device)
             E.data = torch.as_tensor(R.data, dtype=dtype, device=device)
-            E.group = group_size(R.nnz, n_rows)
+            E.tiles = torch.as_tensor(csr_tiles(R.indptr), device=device)
         return E
 
     # -- kernels ----------------------------------------------------------
@@ -155,7 +157,7 @@ class EllMatrix:
             y = dia_spmv(self.dia_data, self.dia_offsets, x, n_cols)
         if self.data is not None:
             y = csr_spmv(self.indptr, self.indices, self.data, x, n_rows,
-                         self.group, out=y)
+                         self.tiles, out=y)
         if y is None:
             y = torch.zeros(n_rows, dtype=x.dtype, device=x.device)
         return y

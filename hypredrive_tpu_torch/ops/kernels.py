@@ -87,7 +87,7 @@ def lib() -> ctypes.CDLL:
                 fn.argtypes = [vp, vp, i32, vp, vp, i64, i64, vp]
                 fn = getattr(cdll, f"hdtt_csr_spmv_{suffix}")
                 fn.restype = ctypes.c_int
-                fn.argtypes = [vp, vp, vp, vp, vp, i64, i32, i32, vp]
+                fn.argtypes = [vp, vp, vp, vp, vp, i64, vp, i64, i32, vp]
             _lib = cdll
         return _lib
 

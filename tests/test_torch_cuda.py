@@ -9,7 +9,8 @@ nor the JAX package, so on a machine with a card it runs on its own:
 
 Tolerances: the kernels and their plain versions sum in different orders
 (lane-parallel shuffles against torch's reductions), so they agree to
-float32 rounding (rel 1e-5) or float64 rounding (rel 1e-12).
+float32 rounding (rel 1e-5) or float64 rounding (rel 1e-12).  The CSR
+kernel sums in a fixed order, so a repeat launch is bit-identical.
 """
 
 import os
@@ -21,7 +22,8 @@ import torch
 
 import hypredrive_tpu_torch
 from hypredrive_tpu_torch.ops.csr import laplacian_3d_7pt
-from hypredrive_tpu_torch.ops.csr_spmv import csr_spmv, csr_spmv_plain
+from hypredrive_tpu_torch.ops.csr_spmv import (TILE_NNZ, csr_spmv,
+                                               csr_spmv_plain, csr_tiles)
 from hypredrive_tpu_torch.ops.device_matrix import EllMatrix
 from hypredrive_tpu_torch.ops.dia_spmv import dia_spmv, dia_spmv_plain
 
@@ -65,30 +67,75 @@ def test_dia_kernel_matches_plain(dev, dtype, case):
     assert _close(y, dia_spmv_plain(dia, offsets, x, n_cols), dtype)
 
 
+def _lengths_csr(lengths, n_cols, rng):
+    indptr = np.concatenate([[0], np.cumsum(lengths)])
+    indices = rng.integers(0, n_cols, indptr[-1])
+    A = sp.csr_matrix((rng.standard_normal(indptr[-1]), indices, indptr),
+                      shape=(len(lengths), n_cols))
+    A.sum_duplicates()
+    A.sort_indices()
+    return A
+
+
+def _csr_case(case, rng):
+    if case in CSR_CASES:
+        m, n, density = CSR_CASES[case]
+        A = sp.random(m, n, density=density, random_state=rng, format="csr")
+        A.data = rng.standard_normal(A.nnz)
+        A.sort_indices()
+        return A
+    # a row longer than a tile, empty rows, 1-entry rows (MGR R0)
+    lengths = {"long_row": [5, 3 * TILE_NNZ + 11, 0, 7, 2 * TILE_NNZ, 1],
+               "empty_rows": np.where(rng.random(5000) < 0.5, 0,
+                                      rng.integers(1, 40, 5000)),
+               "one_entry_rows": np.ones(20000, np.int64)}[case]
+    return _lengths_csr(lengths, 9000, rng)
+
+
 CSR_CASES = {"square": (6000, 6000, 0.002), "tall": (6000, 2000, 0.003),
              "wide": (2000, 6000, 0.01), "long_rows": (300, 4000, 0.05)}
+CSR_ALL = sorted(CSR_CASES) + ["long_row", "empty_rows", "one_entry_rows"]
 
 
-@pytest.mark.parametrize("group", [2, 4, 8, 16, 32])
+@pytest.mark.parametrize("tile_nnz", [64, 256, TILE_NNZ])
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
-@pytest.mark.parametrize("case", sorted(CSR_CASES))
-def test_csr_kernel_matches_plain(dev, dtype, case, group):
-    m, n, density = CSR_CASES[case]
+@pytest.mark.parametrize("case", CSR_ALL)
+def test_csr_kernel_matches_plain(dev, dtype, case, tile_nnz):
+    """The tiled kernel at several tile sizes against the plain version,
+    writing y and adding into it, and bit-identical on a repeat launch."""
     rng = np.random.default_rng(3)
-    A = sp.random(m, n, density=density, random_state=rng, format="csr")
-    A.data = rng.standard_normal(A.nnz)
-    A.sort_indices()
+    A = _csr_case(case, rng)
+    m, n = A.shape
     ip = torch.tensor(A.indptr, dtype=torch.int64, device=dev)
     ix = torch.tensor(A.indices, dtype=torch.int32, device=dev)
     dd = torch.tensor(A.data, dtype=dtype, device=dev)
+    tl = torch.tensor(csr_tiles(A.indptr, tile_nnz), device=dev)
     x = torch.tensor(rng.standard_normal(n), dtype=dtype, device=dev)
     before = csr_spmv.launches
-    y = csr_spmv(ip, ix, dd, x, m, group)
+    y = csr_spmv(ip, ix, dd, x, m, tl)
     ref = csr_spmv_plain(ip, ix, dd, x, m)
     assert _close(y, ref, dtype)
-    y2 = csr_spmv(ip, ix, dd, x, m, group, out=torch.ones_like(y))
+    assert torch.equal(csr_spmv(ip, ix, dd, x, m, tl), y)
+    y2 = csr_spmv(ip, ix, dd, x, m, tl, out=torch.ones_like(y))
     assert _close(y2 - 1, ref, dtype)
-    assert csr_spmv.launches == before + 2
+    assert csr_spmv.launches == before + 3
+
+
+def test_csr_kernel_unaligned_views(dev):
+    """Spans that start off 16-byte words: the operands are views at odd
+    element offsets into larger allocations."""
+    rng = np.random.default_rng(5)
+    A = _csr_case("empty_rows", rng)
+    m, n = A.shape
+    ip = torch.tensor(A.indptr, dtype=torch.int64, device=dev)
+    ix = torch.zeros(A.nnz + 3, dtype=torch.int32, device=dev)[3:]
+    ix.copy_(torch.tensor(A.indices, dtype=torch.int32))
+    dd = torch.zeros(A.nnz + 1, dtype=torch.float64, device=dev)[1:]
+    dd.copy_(torch.tensor(A.data))
+    tl = torch.tensor(csr_tiles(A.indptr, 300), device=dev)
+    x = torch.tensor(rng.standard_normal(n), device=dev)
+    assert _close(csr_spmv(ip, ix, dd, x, m, tl),
+                  csr_spmv_plain(ip, ix, dd, x, m), torch.float64)
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)

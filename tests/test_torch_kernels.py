@@ -24,8 +24,8 @@ from hypredrive_tpu.ops.pallas_dia import DiaSpMV
 from hypredrive_tpu.ops.pallas_spmv import GatherSpMV
 from hypredrive_tpu_torch.core.errors import HypredrvError
 from hypredrive_tpu_torch.ops import kernels
-from hypredrive_tpu_torch.ops.csr_spmv import (csr_spmv, csr_spmv_plain,
-                                               group_size)
+from hypredrive_tpu_torch.ops.csr_spmv import (TILE_NNZ, TILE_ROWS, csr_spmv,
+                                               csr_spmv_plain, csr_tiles)
 from hypredrive_tpu_torch.ops.dia_spmv import dia_spmv, dia_spmv_plain
 
 torch.set_num_threads(1)
@@ -97,6 +97,10 @@ def _csr_tensors(A, dtype):
             torch.tensor(A.data, dtype=dtype))
 
 
+def _tiles(A):
+    return torch.from_numpy(csr_tiles(A.indptr))
+
+
 CSR_CASES = {"square": (600, 600, 0.01), "tall": (600, 280, 0.01),
              "wide": (280, 600, 0.02)}
 
@@ -156,8 +160,8 @@ def test_csr_out_accumulates():
     A = _random_csr(400, 300, 0.02, seed=6)
     x = torch.from_numpy(np.random.default_rng(7).standard_normal(300))
     base = torch.arange(400, dtype=torch.float64)
-    y = csr_spmv(*_csr_tensors(A, torch.float64), x, 400,
-                 group_size(A.nnz, 400), out=base.clone())
+    y = csr_spmv(*_csr_tensors(A, torch.float64), x, 400, _tiles(A),
+                 out=base.clone())
     np.testing.assert_allclose(y.numpy(), base.numpy() + A @ x.numpy(),
                                rtol=1e-13, atol=1e-13)
 
@@ -170,7 +174,7 @@ def test_wrappers_run_plain_on_cpu_without_counting():
     assert torch.equal(y, dia_spmv_plain(torch.from_numpy(dia), (-10, 0, 3),
                                          x, 200))
     B = _random_csr(200, 200, 0.05, seed=9)
-    y = csr_spmv(*_csr_tensors(B, torch.float64), x, 200, 4)
+    y = csr_spmv(*_csr_tensors(B, torch.float64), x, 200, _tiles(B))
     assert torch.equal(y, csr_spmv_plain(*_csr_tensors(B, torch.float64),
                                          x, 200))
     # launches count kernel launches only, never the plain versions
@@ -190,20 +194,116 @@ def test_wrappers_reject_bad_operands():
         dia_spmv(torch.zeros(49, 5), tuple(range(49)), torch.zeros(5), 5)
     A = _random_csr(50, 50, 0.1, seed=1)
     ip, ix, dd = _csr_tensors(A, torch.float64)
+    tl = _tiles(A)
     with pytest.raises(TypeError):
-        csr_spmv(ip.int(), ix, dd, x, 50, 4)              # indptr int32
+        csr_spmv(ip.int(), ix, dd, x, 50, tl)             # indptr int32
     with pytest.raises(ValueError):
-        csr_spmv(ip, ix, dd, x, 49, 4)                    # row count
+        csr_spmv(ip, ix, dd, x, 49, tl)                   # row count
     with pytest.raises(ValueError):
-        csr_spmv(ip, ix, dd, x, 50, 4, out=torch.zeros(49,
-                                                       dtype=torch.float64))
+        csr_spmv(ip, ix, dd, x, 50, tl, out=torch.zeros(49,
+                                                        dtype=torch.float64))
+    with pytest.raises(TypeError):
+        csr_spmv(ip, ix, dd, x, 50, tl.long())            # tiles int64
+    with pytest.raises(ValueError):
+        csr_spmv(ip, ix, dd, x, 50, tl[0])                # rows alone
+    with pytest.raises(ValueError):
+        csr_spmv(ip, ix, dd, x, 50, torch.zeros(2, 53, dtype=torch.int32))
+    with pytest.raises(ValueError):
+        csr_tiles(A.indptr, tile_nnz=TILE_NNZ + 1)        # above the ring
 
 
-@pytest.mark.parametrize("nnz,rows,g", [(0, 10, 2), (7 * 100, 100, 8),
-                                        (4 * 100, 100, 4), (10 ** 6, 10, 32),
-                                        (30, 10, 4)])
-def test_group_size(nnz, rows, g):
-    assert group_size(nnz, rows) == g
+def _indptr(lengths):
+    return np.concatenate([[0], np.cumsum(lengths)]).astype(np.int64)
+
+
+_LEN = np.random.default_rng(11)
+# row lengths of the partition cases (a rectangular P has its own pattern)
+TILE_CASES = {
+    "empty_rows": _indptr(np.where(_LEN.random(3000) < 0.4, 0,
+                                   _LEN.integers(1, 30, 3000))),
+    "one_entry_rows": _indptr(np.ones(2000, np.int64)),       # MGR R0
+    "long_row": _indptr([3, 5, 2 * TILE_NNZ + 77, 4, 0, 3 * TILE_NNZ, 9]),
+    "one_row": _indptr([40]),
+    "a1_like_27": _indptr(np.full(3000, 27)),
+    "rectangular_p": _random_csr(1500, 400, 0.008, seed=12).indptr,
+}
+
+
+@pytest.mark.parametrize("tile_nnz,max_rows", [(TILE_NNZ, TILE_ROWS),
+                                               (100, 16)])
+@pytest.mark.parametrize("case", sorted(TILE_CASES))
+def test_csr_tiles_partition(case, tile_nnz, max_rows):
+    """Every row in exactly one tile, in order; at most tile_nnz entries
+    (or one long row) and max_rows rows a tile."""
+    indptr = TILE_CASES[case]
+    n = len(indptr) - 1
+    t, ent = csr_tiles(indptr, tile_nnz, max_rows)
+    assert t.dtype == np.int32 and t[0] == 0 and t[-1] == n
+    np.testing.assert_array_equal(ent, indptr[t])
+    rows = np.diff(t)
+    assert (rows >= 1).all() and (rows <= max_rows).all()
+    nnz = indptr[t[1:]] - indptr[t[:-1]]
+    assert ((nnz <= tile_nnz) | (rows == 1)).all()
+    # greedy: no tile could have taken its successor's first row
+    nxt = indptr[np.minimum(t[1:-1] + 1, n)] - indptr[t[:-2]]
+    assert ((nxt > tile_nnz) | (rows[:-1] == max_rows)).all()
+
+
+def _tile_walk(indptr, indices, data, x, tiles, n_threads=256):
+    """numpy model of the kernel's sums: per tile (a long row in chunks of
+    TILE_NNZ), G lanes a row (G from the tile's row count), each lane
+    summing every G-th product, then a shuffle-down tree, chunks added in
+    order."""
+    y = np.zeros(len(indptr) - 1)
+    for r0, r1 in zip(tiles[0, :-1], tiles[0, 1:]):
+        tb, te = indptr[r0], indptr[r1]
+        g = 32
+        while g > 1 and g * (r1 - r0) > n_threads:
+            g //= 2
+        carry = 0.0
+        for c0 in range(tb, max(te, tb + 1), TILE_NNZ):
+            c1 = min(te, c0 + TILE_NNZ)
+            prod = data[c0:c1] * x[indices[c0:c1]]
+            for r in range(r0, r1):
+                lo, hi = max(indptr[r], c0) - c0, min(indptr[r + 1], c1) - c0
+                lanes = [0.0] * g
+                for lane in range(g):
+                    for j in range(lo + lane, hi, g):
+                        lanes[lane] += prod[j]
+                o = g // 2
+                while o:
+                    for lane in range(o):
+                        lanes[lane] += lanes[lane + o]
+                    o //= 2
+                acc = lanes[0] if c0 == tb else carry + lanes[0]
+                if c1 == te:
+                    y[r] = acc
+                else:
+                    carry = acc
+    return y
+
+
+@pytest.mark.parametrize("case", ["long_row", "rectangular_p"])
+def test_tile_walk_matches_scipy_and_plain(case):
+    """Summed in the kernel's order over its tiles, A·x agrees with scipy
+    and with the plain version to float64 rounding (rel 1e-13)."""
+    indptr = TILE_CASES[case]
+    rng = np.random.default_rng(13)
+    n_cols = 400
+    indices = rng.integers(0, n_cols, indptr[-1]).astype(np.int32)
+    data = rng.standard_normal(indptr[-1])
+    A = sp.csr_matrix((data, indices, indptr), shape=(len(indptr) - 1,
+                                                      n_cols))
+    x = rng.standard_normal(n_cols)
+    y = _tile_walk(indptr, indices, data, x, csr_tiles(indptr))
+    ref = A @ x
+    scale = np.abs(ref).max()
+    assert np.abs(y - ref).max() <= 1e-13 * scale
+    plain = csr_spmv_plain(torch.from_numpy(indptr),
+                           torch.from_numpy(indices),
+                           torch.from_numpy(data), torch.from_numpy(x),
+                           len(indptr) - 1).numpy()
+    assert np.abs(y - plain).max() <= 1e-13 * scale
 
 
 def test_kernel_build_needs_nvcc(monkeypatch, tmp_path):
