@@ -9,18 +9,7 @@ Phases (any failure exits non-zero and prints no result line):
 
 1. Environment: the card's name and power limit, CUDA, ``nvcc``; build the
    CUDA kernels from ``hypredrive_tpu_torch/csrc`` (timed).
-2. Kernels against their plain torch versions on the card, at the shapes
-   of the 128³ solve: the fine-grid DIA operator, and the CSR remainders of
-   P, R and the first coarse A of its AMG hierarchy; float32 (rel 1e-5) and
-   float64 (rel 1e-12).  Kernel and plain times from CUDA events over
-   back-to-back calls; device times per call from CUDA-graph replay (the
-   kernels, the library call) and torch.profiler (the plain versions); for
-   each shape the bound (least bytes over 3.35 TB/s) and the device time of
-   one library call computing the same product (``torch.sparse_csr_tensor
-   @ x``, cuSPARSE; the DIA part converted to CSR), timed here and used
-   nowhere in the port.  The CSR kernel must give bit-identical y on a
-   repeat launch, and its tile size is swept at A1.
-3. The solve paths, each with both kernels' launch counters zeroed just
+2. The solve paths, each with both kernels' launch counters zeroed just
    before it and read just after; each must launch the kernels it runs:
    - ex1: examples/ex1.yml through ``hypredrive_tpu_torch.cli`` in float64,
      5 iterations, relative residual ≤ 1e-6, solution checked against
@@ -59,11 +48,49 @@ Phases (any failure exits non-zero and prints no result line):
      the host setup of each rebuild split into ILU(0), nested AMG and the
      rest of MGR, first and warm solve, and the device busy share of a
      reused solve.
-4. Kernels against their plain versions at the MGR shapes of mgr_64 (level
-   0 P and R, the level 1 operator, the coarsest operator), float64 (rel
-   1e-12), with the CSR kernel's tile size swept on P and R; and at seq_64's
-   shapes (the level-1 ILU L and U factors, the first coarse operator of
-   the nested F-relaxation AMG).
+   - elasticity_rbm: examples/drivers/elasticity.py's flow rebuilt from
+     the port's modules at 48×24×24 cells (88,200 rows, 5.47M nnz): its
+     preset and config, the six rigid-body modes as the near null space,
+     three PCG + AMG solves to 1e-6 through the lifecycle verbs, each
+     within ±1 of the JAX package's count; the same with
+     ``interp_vec_variant: 0``, and the driver's 12×6×6 default;
+   - convdif_air: convection_diffusion_2d(1024, eps=1e-3) (1,048,576
+     rows), GMRES(30) + AMG with AIR restriction and the AIR relaxation
+     schedule (examples/drivers/convdif-gmres-air.yml) to 1e-8, and
+     examples/drivers/convdif.py's transient loop (n = 40, 10 steps);
+   - lap128_agg_cf: a 128³ Laplacian, PCG + AMG with one aggressive level
+     and C/F ℓ1-Jacobi relaxation, its count and operator complexity;
+   - ex6_eigspec / ex9_print_system: examples/ex6.yml (eigenvalues of
+     M⁻¹A against the JAX package's, ``data/golden``) and
+     examples/ex9-print-system.yml (the dump tree) through the CLI;
+   - lsseq_ex7: data/poroseq packed into a zlib lsseq container by the
+     port's ``tools/lsseq.py``, then ex7 through ``sequence_filename``;
+   - scaling_xref: ex3 with rhs_l2 and dofmap_mag scaling, and GMRES + MGR
+     on data/multiphys2k with ``rhs_mode: randsol`` (error norm and
+     per-block error history against the JAX package's).
+3. Kernels against their plain torch versions on the card, at the shapes
+   of the 128³ solve (on lap128's own hierarchy): the fine-grid DIA
+   operator, and the CSR remainders of P, R and the first coarse A;
+   float32 (rel 1e-5) and float64 (rel 1e-12).  Kernel and plain times
+   from CUDA events over back-to-back calls; device times per call from
+   CUDA-graph replay (the kernels, the library call) and torch.profiler
+   (the plain versions); for each shape the bound (least bytes over 3.35
+   TB/s: the stored entries, indices, x and y once) and the device time
+   of one library call computing the same product
+   (``torch.sparse_csr_tensor @ x``, cuSPARSE; the DIA part converted to
+   CSR), timed here and used nowhere in the port.  Every timing cycles
+   through copies of the operand and x that fill four times the 50 MB L2,
+   so each call reads its operand from device memory; a kernel more than
+   5% faster than its bound fails.  The CSR kernel must give bit-identical
+   y on a repeat launch, and its tile size is swept at A1.  Then the same
+   at the MGR shapes of mgr_64 (level 0 P and R, the level 1 operator, the
+   coarsest operator), float64 (rel 1e-12); at seq_64's shapes (the
+   level-1 ILU L and U factors, the first coarse operator of the nested
+   F-relaxation AMG); and at the elasticity fine operator and convdif_air's
+   level-0 AIR restriction.
+
+The JAX package's numbers pinned below come from ``scripts/jax_goldens.py``
+run on the CPU.
 
 Prints the kernel table as one JSON line, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``.  Details go to
@@ -80,6 +107,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -170,10 +198,86 @@ JAX_ITERS_SEQ64 = (38, 55, 20, 80)
 JAX_RELRES_SEQ64 = (9.859454860586217e-07, 7.770520952997071e-07,
                     9.958417935126493e-07, 8.727718813545901e-07)
 
-# objects one phase hands to a later one (the mgr_64 and seq_64 operators)
+# the JAX package on the new paths, from scripts/jax_goldens.py on the CPU
+# (float64): elasticity 48×24×24 per solve with rigid-body modes (GM2) and
+# without (interp_vec_variant 0), and at the driver's 12×6×6 default
+JAX_ITERS_ELASTICITY_48 = 35
+JAX_ITERS_ELASTICITY_48_V0 = 20
+JAX_ITERS_ELASTICITY_12 = 11
+# GMRES + AIR on convection_diffusion_2d(1024, eps=1e-3), b = ones; and
+# convdif.py's transient loop (n = 40, 10 steps, dt from 0.01 growing 1.5×)
+JAX_ITERS_CONVDIF_1024 = 23
+JAX_ITERS_CONVDIF_TRANSIENT = (4, 4, 5, 6, 7, 7, 8, 9, 9, 10)
+# 128³ PCG + AMG with one aggressive level and C/F ℓ1-Jacobi
+JAX_ITERS_LAP128_AGG_CF = 27
+JAX_OC_LAP128_AGG_CF = 1.470297755552142
+# ex6's eigenvalues of M⁻¹A (5,184 complex values).  The JAX package's own
+# eigenvalues move by 2.64e-8 (relative, nearest neighbour; 2.48e-8 after
+# sorting) when LAPACK runs on one thread instead of eight
+# (``scripts/jax_goldens.py --eig-spread``): the nonsymmetric eig amplifies
+# the last bits of M⁻¹A.  The bound is 1e-7, about four times that spread.
+JAX_EX6_EIGENVALUES = os.path.join("data", "golden", "ex6_jax_eigenvalues.npy")
+EX6_EIG_TOL = 1e-7
+# ex9's dump tree and ‖x‖₂, ‖x‖₁, ‖x‖∞ of its solution dump
+JAX_EX9_FILES = tuple(
+    f"ls_00000/{stage}/{f}" for stage in ("apply", "build")
+    for f in ("IJ.out.A", "IJ.out.b", "IJ.out.x", "IJ.out.x0",
+              "metadata.yml"))
+JAX_EX9_X_NORMS = (108.75138743773175, 3094.1666104093215, 6.594672387125621)
+# ex3 with scaling; GMRES + MGR with rhs_mode randsol: the error norm and
+# the per-dof-block error history against xref
+JAX_ITERS_SCALING = {"rhs_l2": 9, "dofmap_mag": 10}
+JAX_ITERS_RANDSOL = 7
+JAX_ERROR_NORM_RANDSOL = 2.6802242318481424e-05
+JAX_ERROR_HISTORY_RANDSOL = (
+    (24.11078852553775, 23.812833516821716, 23.51069497733468),
+    (0.8360729579814181, 1.6465996419098996, 2.172445863106062),
+    (0.13000401786834503, 0.1513811464377395, 0.26529869105730275),
+    (0.0287604852078096, 0.024455654308124193, 0.03438686288468899),
+    (0.005713378579426644, 0.004283336317065077, 0.005111033511589427),
+    (0.0007677588131643337, 0.0007220768229345043, 0.0009401667008576941),
+    (8.238926549595286e-05, 8.045988566555878e-05, 0.0001586346649172192),
+    (6.057544607359008e-06, 1.1529960045408335e-05, 2.342490913493031e-05))
+
+# examples/drivers/elasticity.py's preset and DEFAULT_CONFIG
+ELASTICITY_PRESET = (
+    "elasticity_sdc_3d",
+    "amg:\n  coarsening:\n    num_functions: 3\n    strong_th: 0.8\n"
+    "    filter_functions: on",
+    "Elasticity 3D AMG with function filtering")
+ELASTICITY_CONFIG = """
+general:
+  name: elasticity
+  use_millisec: on
+
+linear_system:
+  rhs_mode: ones
+
+solver:
+  pcg:
+    max_iter: 200
+    relative_tol: 1.0e-6
+    print_level: 0
+
+preconditioner:
+  preset: elasticity_sdc_3d
+"""
+# the same AMG without interpolation vectors (the preset cannot take an
+# override, so it is written out)
+ELASTICITY_V0 = ELASTICITY_CONFIG.replace(
+    "preset: elasticity_sdc_3d",
+    "amg:\n    interp_vec_variant: 0\n    coarsening:\n"
+    "      num_functions: 3\n      strong_th: 0.8\n"
+    "      filter_functions: on")
+CONVDIF_AIR = os.path.join("examples", "drivers", "convdif-gmres-air.yml")
+
+# objects one phase hands to a later one (the mgr_64, seq_64, elasticity
+# and convdif_air operators)
 KEEP = {}
 
 HBM_TB_S = 3.35   # H100 SXM device-memory rate (NVIDIA data sheet)
+L2_BYTES = 50 * 2**20   # H100 SXM L2 cache (NVIDIA data sheet)
+BOUND_SHARE_MAX = 1.05  # a kernel faster than its bound fails the check
 
 # the earlier CSR kernel to time beside the current one (--baseline-csr)
 BASELINE = {}
@@ -218,63 +322,87 @@ def nvidia_smi():
     return out.stdout.strip().splitlines()[0] if out.stdout.strip() else ""
 
 
-def time_ms(fn, reps=50, warmup=3):
+def _calls(fns, reps):
+    """``fns`` (one callable, or copies of one call over copies of its
+    operand) as a list, and the number of calls that cycles through it."""
+    fns = list(fns) if isinstance(fns, (list, tuple)) else [fns]
+    return fns, max(reps, len(fns))
+
+
+def time_ms(fns, reps=50, warmup=3):
     import torch
 
-    for _ in range(warmup):
-        fn()
+    fns, reps = _calls(fns, reps)
+    for i in range(warmup):
+        fns[i % len(fns)]()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(reps):
-        fn()
+    for i in range(reps):
+        fns[i % len(fns)]()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps=20):
-    """Device time of one call of fn: the sum of its kernels' device times
-    under torch.profiler, per call.  Unlike back-to-back CUDA events it
-    excludes the gaps while the host launches, which bound event times of
-    kernels shorter than the host's launch period.  Used for the plain
-    versions, which a CUDA graph cannot capture."""
-    import torch
+def device_kernels(prof):
+    """{kernel name: [device µs, count]} of a finished torch.profiler run,
+    read from its raw device events; the record_function spans mirrored on
+    the device are left out.  (``key_averages`` builds the whole event tree
+    first and takes seconds on a solve of tens of thousands of kernels.)"""
     from torch.autograd import DeviceType
+
+    out = {}
+    for e in prof.profiler.kineto_results.events():
+        if (e.device_type() != DeviceType.CUDA or e.is_user_annotation()
+                or e.name().startswith(("hypredrv::", "amg_L", "mgr_L"))):
+            continue
+        acc = out.setdefault(e.name(), [0.0, 0])
+        acc[0] += e.duration_ns() / 1e3
+        acc[1] += 1
+    return out
+
+
+def device_ms(fns, reps=20):
+    """Device time of one call: the sum of the kernels' device times under
+    torch.profiler, per call.  Unlike back-to-back CUDA events it excludes
+    the gaps while the host launches, which bound event times of kernels
+    shorter than the host's launch period.  Used for the plain versions,
+    which a CUDA graph cannot capture."""
+    import torch
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    fns, reps = _calls(fns, reps)
+    fns[0]()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+        for i in range(reps):
+            fns[i % len(fns)]()
         torch.cuda.synchronize()
-    us = sum(getattr(e, "self_device_time_total",
-                     getattr(e, "self_cuda_time_total", 0.0))
-             for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA)
+    us = sum(us for us, _ in device_kernels(prof).values())
     return us / 1e3 / reps
 
 
-def replay_ms(fn, reps=20, replays=5):
-    """Device time of one call of fn: a CUDA graph of ``reps`` calls,
-    replayed ``replays`` times between two CUDA events.  The calls run back
-    to back on the device with no host gaps, so kernels shorter than the
-    host's launch period are timed too.  (After the solve phases the
-    profiler was seen to drop kernel records, so it times only what a
-    graph cannot capture.)"""
+def replay_ms(fns, reps=20, replays=5):
+    """Device time of one call: a CUDA graph of ``reps`` calls (cycling
+    through ``fns``), replayed ``replays`` times between two CUDA events.
+    The calls run back to back on the device with no host gaps, so kernels
+    shorter than the host's launch period are timed too.  (After the solve
+    phases the profiler was seen to drop kernel records, so it times only
+    what a graph cannot capture.)"""
     import torch
 
-    fn()
+    fns, reps = _calls(fns, reps)
+    fns[0]()
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        fn()
+        fns[0]()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
+        for i in range(reps):
+            fns[i % len(fns)]()
     graph.replay()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -302,25 +430,43 @@ def phase_env(report):
     report["nvcc"] = ver[-1] if ver else ""
     print(f"torch {torch.__version__}, torch.version.cuda "
           f"{torch.version.cuda}, nvcc: {report['nvcc']}")
+    # the host helpers' g++ build runs beside the kernels' nvcc builds
     t0 = time.perf_counter()
+    host = {}
+    th = threading.Thread(target=lambda: host.update(
+        backend=native.backend(), s=time.perf_counter() - t0))
+    th.start()
     kernels.lib()
     report["kernel_build_s"] = time.perf_counter() - t0
     print(f"kernel build + load: {report['kernel_build_s']:.3f} s "
           f"({kernels.BUILD_ROOT})")
-    t0 = time.perf_counter()
-    report["host_helpers"] = native.backend()
+    th.join()
+    report["host_helpers"] = host.get("backend")
     print(f"AMG host setup helpers: {report['host_helpers']} "
-          f"({time.perf_counter() - t0:.3f} s)")
+          f"({host.get('s', 0.0):.3f} s)")
 
 
 def spmv_bytes(kind, E, itemsize):
-    """Least bytes one matvec of E's DIA or CSR part moves: values,
-    indices, indptr, y and x once."""
+    """Least bytes one matvec of E's DIA or CSR part moves: its stored
+    entries (values; the CSR's indices and indptr too), y and x once.  A
+    DIA slot that holds no entry of the matrix (a zero inside the band or
+    past its ends) is no work of the function and is not counted."""
+    import torch
+
     nr, nc = E.shape
     if kind == "dia_spmv":
-        return E.dia_data.numel() * itemsize + (nr + nc) * itemsize
-    return (E.data.numel() * (itemsize + 4) + (nr + 1) * 8
-            + (nr + nc) * itemsize)
+        entries = int(torch.count_nonzero(E.dia_data))
+        return entries * itemsize + (nr + nc) * itemsize
+    return (E.data.numel() * (itemsize + 4)
+            + (nr + 1) * E.indptr.element_size() + (nr + nc) * itemsize)
+
+
+def operand_copies(nbytes):
+    """Copies of a kernel's operand (the matrix part and x) that one timing
+    cycles through: enough to fill four times the L2, so that every call
+    reads its operand from device memory, as the bound assumes, and not
+    from what the previous call left in the L2."""
+    return max(1, -(-4 * L2_BYTES // nbytes))
 
 
 def dia_as_csr(dia, offsets, n_cols):
@@ -369,22 +515,23 @@ def load_baseline(src):
     BASELINE["lib"] = lib
 
 
-def baseline_spmv(E, data):
-    """The earlier row-group kernel on E's CSR part, with the lanes per row
-    it chose (the power of two ≥ the mean row length, in 2..32)."""
+def baseline_spmv(nr, nnz, dtype):
+    """The earlier row-group kernel on a CSR part op = (indptr, indices,
+    data, tiles) of nr rows, with the lanes per row it chose (the power of
+    two ≥ the mean row length, in 2..32)."""
     import torch
 
     lib = BASELINE["lib"]
-    nr = E.shape[0]
     g = 2
-    while g < 32 and g < data.numel() / max(1, nr):
+    while g < 32 and g < nnz / max(1, nr):
         g *= 2
-    fn = (lib.hdtt_csr_spmv_f32 if data.dtype == torch.float32
+    fn = (lib.hdtt_csr_spmv_f32 if dtype == torch.float32
           else lib.hdtt_csr_spmv_f64)
 
-    def run(x):
+    def run(op, x):
+        indptr, indices, data, _ = op
         y = torch.empty(nr, dtype=x.dtype, device=x.device)
-        rc = fn(E.indptr.data_ptr(), E.indices.data_ptr(), data.data_ptr(),
+        rc = fn(indptr.data_ptr(), indices.data_ptr(), data.data_ptr(),
                 x.data_ptr(), y.data_ptr(), nr, g, 0,
                 torch.cuda.current_stream().cuda_stream)
         check(rc == 0, f"baseline csr_spmv: CUDA error {rc}")
@@ -397,7 +544,9 @@ class KernelChecks:
     error; kernel, plain and library times from back-to-back CUDA events;
     device times of the kernel and the library call from CUDA-graph replay
     and of the plain version from the profiler; the bound from the least
-    bytes."""
+    bytes.  Every timing cycles through ``operand_copies`` copies of the
+    operand and x, so no call finds its operand in the L2; a kernel that
+    still beats its bound by more than 5% fails."""
 
     TOL = {"float32": 1e-5, "float64": 1e-12}
 
@@ -407,51 +556,62 @@ class KernelChecks:
         self.rng = np.random.default_rng(0)
         self.rows = []
 
-    def compare(self, name, shape_name, dt, run, plain, n_x, nbytes,
+    def compare(self, name, shape_name, dt, ops, run, plain, n_x, nbytes,
                 library, baseline=None):
+        """``ops``: copies of the operand; ``run(op, x)``, ``plain(op, x)``
+        and ``baseline(op, x)`` the kernel, its plain version and an earlier
+        kernel; ``library(op)`` one library call's closure over op."""
         import numpy as np
         import torch
 
         dtn = str(dt).replace("torch.", "")
         x = torch.as_tensor(self.rng.standard_normal(n_x), dtype=dt,
                             device="cuda")
-        y = run(x)
-        yp = plain(x)
-        y_again = run(x)
+        xs = [x] + [x.clone() for _ in ops[1:]]
+        op = ops[0]
+        y = run(op, x)
+        yp = plain(op, x)
+        y_again = run(op, x)
         torch.cuda.synchronize()
         err = float((y - yp).abs().max())
         scale = float(yp.abs().max()) or 1.0
         rel = err / scale
         repeat_equal = bool(torch.equal(y, y_again))
-        ms = time_ms(lambda: run(x))
-        plain_ms = time_ms(lambda: plain(x))
-        plain_dev = device_ms(lambda: plain(x))
+
+        def each(fn):
+            return [lambda o=o, v=v: fn(o, v) for o, v in zip(ops, xs)]
+
+        ms = time_ms(each(run))
+        plain_ms = time_ms(each(plain))
+        plain_dev = device_ms(each(plain))
         bound = nbytes / (HBM_TB_S * 1e12) * 1e3
         row = {"kernel": name, "shape": shape_name, "dtype": dtn,
                "max_abs_err": err, "max_rel_err": rel,
                "tol_rel": self.TOL[dtn], "repeat_bit_identical": repeat_equal,
                "ms": ms, "plain_ms": plain_ms, "plain_device_ms": plain_dev,
-               "bytes": nbytes, "bound_ms": bound, "bound_by": "bytes"}
+               "bytes": nbytes, "operand_copies": len(ops),
+               "bound_ms": bound, "bound_by": "bytes"}
         if baseline is not None:
             # earlier, current, current, earlier
-            base = [replay_ms(lambda: baseline(x))]
-            dev = (replay_ms(lambda: run(x)) + replay_ms(lambda: run(x))) / 2
-            base.append(replay_ms(lambda: baseline(x)))
-            yb = baseline(x)
+            base = [replay_ms(each(baseline))]
+            dev = (replay_ms(each(run)) + replay_ms(each(run))) / 2
+            base.append(replay_ms(each(baseline)))
+            yb = baseline(op, x)
             row["baseline_device_ms"] = sum(base) / 2
             row["baseline_rel_err"] = float((yb - yp).abs().max()) / scale
         else:
-            dev = replay_ms(lambda: run(x))
+            dev = replay_ms(each(run))
         row["device_ms"] = dev
         row["bound_share"] = bound / row["device_ms"]
         row["tb_s"] = nbytes / (row["device_ms"] * 1e-3) / 1e12
         try:
-            lib_run = library()
-            yl = lib_run(x)
+            lib_runs = [library(o) for o in ops]
+            yl = lib_runs[0](x)
             torch.cuda.synchronize()
             row["library_rel_err"] = float((yl - yp).abs().max()) / scale
-            row["library_ms"] = replay_ms(lambda: lib_run(x))
-            del lib_run, yl
+            row["library_ms"] = replay_ms([lambda f=f, v=v: f(v)
+                                           for f, v in zip(lib_runs, xs)])
+            del lib_runs, yl
         except RuntimeError as exc:   # no such call, or not capturable
             row["library_ms"] = None
             row["library_error"] = str(exc)[:200]
@@ -464,12 +624,16 @@ class KernelChecks:
               f"events: kernel {ms:.4f} plain {plain_ms:.4f} ms; device: "
               f"kernel {row['device_ms']:.4f}{base_txt} plain "
               f"{plain_dev:.4f} library {lib_txt} bound {bound:.4f} ms "
-              f"({100 * row['bound_share']:.1f}%), {row['tb_s']:.2f} TB/s")
+              f"({100 * row['bound_share']:.1f}%), {row['tb_s']:.2f} TB/s, "
+              f"{len(ops)} operand copies")
         check(np.isfinite(rel) and rel <= self.TOL[dtn],
               f"{name} {shape_name} {dt}: rel err {rel:.3e} > "
               f"{self.TOL[dtn]}")
         check(name != "csr_spmv" or repeat_equal,
               f"{name} {shape_name} {dt}: a repeat launch differs")
+        check(row["bound_share"] <= BOUND_SHARE_MAX,
+              f"{name} {shape_name} {dt}: {row['device_ms']:.4f} ms beats "
+              f"its bound {bound:.4f} ms: the bound or the timing is wrong")
         return row
 
     def matrix(self, shape_name, E, dt):
@@ -483,25 +647,33 @@ class KernelChecks:
         size = dt.itemsize
         check(E.dense is None, f"{shape_name} is stored dense")
         if E.dia_data is not None:
-            dia, offs = E.dia_data.to(dt), E.dia_offsets
-            self.compare("dia_spmv", f"{shape_name} D={len(offs)}", dt,
-                         lambda x: dia_spmv(dia, offs, x, nc),
-                         lambda x: dia_spmv_plain(dia, offs, x, nc), nc,
-                         spmv_bytes("dia_spmv", E, size),
-                         lambda: library_spmv(*dia_as_csr(dia, offs, nc),
-                                              E.shape))
+            offs = E.dia_offsets
+            nbytes = spmv_bytes("dia_spmv", E, size)
+            dia = E.dia_data.to(dt)
+            ops = [dia] + [dia.clone()
+                           for _ in range(operand_copies(nbytes) - 1)]
+            self.compare("dia_spmv", f"{shape_name} D={len(offs)}", dt, ops,
+                         lambda d, x: dia_spmv(d, offs, x, nc),
+                         lambda d, x: dia_spmv_plain(d, offs, x, nc), nc,
+                         nbytes,
+                         lambda d: library_spmv(*dia_as_csr(d, offs, nc),
+                                                E.shape))
+            del ops, dia
         if E.data is not None:
-            data = E.data.to(dt)
+            nbytes = spmv_bytes("csr_spmv", E, size)
+            op = (E.indptr, E.indices, E.data.to(dt), E.tiles)
+            ops = [op] + [tuple(t.clone() for t in op)
+                          for _ in range(operand_copies(nbytes) - 1)]
             self.compare("csr_spmv", f"{shape_name} nnz={E.data.numel()}",
-                         dt,
-                         lambda x: csr_spmv(E.indptr, E.indices, data, x, nr,
-                                            E.tiles),
-                         lambda x: csr_spmv_plain(E.indptr, E.indices, data,
-                                                  x, nr), nc,
-                         spmv_bytes("csr_spmv", E, size),
-                         lambda: library_spmv(E.indptr.int(), E.indices,
-                                              data, E.shape),
-                         baseline_spmv(E, data) if BASELINE else None)
+                         dt, ops,
+                         lambda o, x: csr_spmv(o[0], o[1], o[2], x, nr, o[3]),
+                         lambda o, x: csr_spmv_plain(o[0], o[1], o[2], x, nr),
+                         nc, nbytes,
+                         lambda o: library_spmv(o[0].int(), o[1], o[2],
+                                                E.shape),
+                         baseline_spmv(nr, E.data.numel(), dt)
+                         if BASELINE else None)
+            del ops, op
 
 
 def tile_sweep(shape_name, E):
@@ -537,23 +709,15 @@ def tile_sweep(shape_name, E):
 
 
 def phase_kernels(report):
-    """Each kernel against its plain version at the 128³ solve's shapes."""
+    """Each kernel against its plain version at the 128³ solve's shapes:
+    the fine operator and level 0's P and R and level 1's A of the
+    hierarchy the lap128 path set up."""
     import torch
-    from hypredrive_tpu_torch.config.sections import AMG_SCHEMA
-    from hypredrive_tpu_torch.ops.csr import laplacian_3d_7pt
-    from hypredrive_tpu_torch.ops.device_matrix import EllMatrix
-    from hypredrive_tpu_torch.precon.amg.hierarchy import setup_hierarchy
 
-    dev = torch.device("cuda")
-    A_host = laplacian_3d_7pt(128)
-    t0 = time.perf_counter()
-    A = EllMatrix.from_csr(A_host, dtype=torch.float64, device=dev)
-    state = setup_hierarchy(A_host, AMG_SCHEMA.defaults(),
-                            dtype=torch.float64, device=dev, fine_matrix=A)
-    print(f"128^3 hierarchy for the kernel checks: "
-          f"{time.perf_counter() - t0:.3f} s")
+    state = KEEP.pop("lap128_state")
     checks = KernelChecks()
     lv0, lv1 = state.levels[0], state.levels[1]
+    A = lv0.A
     for E in (lv0.P, lv0.R, lv1.A):
         check(E.data is not None, f"{E.shape} has no CSR remainder")
     for dt in (torch.float64, torch.float32):
@@ -613,8 +777,9 @@ def phase_ex1(report):
           f"ex1: host check failed (rel res {host_rel:.3e}, err {err:.3e})")
 
 
-def run_laplacian(nx, dtype):
-    """PCG + AMG to 1e-8 on an nx³ Laplacian through the driver API."""
+def run_laplacian(nx, dtype, amg=None):
+    """PCG + AMG to 1e-8 on an nx³ Laplacian through the driver API
+    (``amg``: the AMG section, else the defaults)."""
     import numpy as np
     from hypredrive_tpu_torch import HypreDrive
 
@@ -625,7 +790,7 @@ def run_laplacian(nx, dtype):
         "linear_system": {"generate": {"kind": "laplacian_7pt", "nx": nx},
                           "rhs_mode": "ones"},
         "solver": {"pcg": {"relative_tol": 1e-8, "max_iter": 100}},
-        "preconditioner": "amg",
+        "preconditioner": {"amg": amg} if amg else "amg",
     })
     sys_ = drv.linear_system_build()
     drv.precon_create()
@@ -634,9 +799,13 @@ def run_laplacian(nx, dtype):
     res = drv.linear_solver_apply()
     e = drv.stats.entries[-1]
     x = drv.get_solution()
-    levels = len(drv.precon.state.levels)
+    state = drv.precon.state
+    levels = len(state.levels)
     out = {"rows": sys_.num_rows, "nnz": sys_.nnz, "levels": levels,
-           "level_rows": [lv.A.shape[0] for lv in drv.precon.state.levels],
+           "level_rows": [lv.A.shape[0] for lv in state.levels],
+           "operator_complexity": (sum(lv.A.nnz for lv in state.levels)
+                                   / state.levels[0].A.nnz),
+           "smoothers": sorted({lv.smoother for lv in state.levels}),
            "iters": res.iters, "rel_res_norm": res.rel_res_norm,
            "converged": res.converged, "build_s": e.build_time,
            "setup_s": e.setup_time, "solve_s": e.solve_time,
@@ -657,6 +826,7 @@ def run_laplacian(nx, dtype):
     print(f"  second solve: {out['solve_warm_s']:.4f} s, kernel launches "
           f"{out['warm_launches']}")
     out["profile"] = profile_solve(drv)
+    out["state"] = drv.precon.state
     drv.destroy()
     return out
 
@@ -666,34 +836,28 @@ def profile_solve(drv):
     time, device busy time (sum of kernel times) and the top kernels.
     Informational only: a profiler that records nothing fails no phase."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     drv.reset_initial_guess()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # device activity only: recording every host op too costs seconds to
+    # read back on the long solves and slows the solve it measures
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         drv.linear_solver_apply()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
 
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-
-    # device-side events, less the record_function spans mirrored there
-    kern = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA
-            and not e.key.startswith(("hypredrv::", "amg_L", "mgr_L"))]
-    busy = sum(dev_us(e) for e in kern) / 1e6
-    n_dev = sum(e.count for e in kern)
-    top = [{"name": e.key[:80], "ms": dev_us(e) / 1e3, "count": e.count}
-           for e in sorted(kern, key=dev_us, reverse=True)[:8]]
+    kern = device_kernels(prof)
+    busy = sum(us for us, _ in kern.values()) / 1e6
+    n_dev = sum(n for _, n in kern.values())
+    top = [{"name": k[:80], "ms": us / 1e3, "count": n}
+           for k, (us, n) in sorted(kern.items(), key=lambda kv: -kv[1][0])[:8]]
     # the hand-written kernels' device time in this solve
-    by_kernel = {name: {"ms": sum(dev_us(e) for e in kern
-                                  if name in e.key) / 1e3,
-                        "count": sum(e.count for e in kern if name in e.key)}
+    by_kernel = {name: {"ms": sum(us for k, (us, _) in kern.items()
+                                  if name in k) / 1e3,
+                        "count": sum(n for k, (_, n) in kern.items()
+                                     if name in k)}
                  for name in KERNELS}
     print(f"  profiled solve: wall {wall:.4f} s, device busy {busy:.4f} s "
           f"({100 * busy / wall:.1f}%), {n_dev} device items")
@@ -706,6 +870,7 @@ def profile_solve(drv):
 
 def phase_64(report):
     r = report["lap64_f32"] = run_laplacian(64, "float32")
+    del r["state"]
     # the recurrence reaches 1e-8; the true float32 residual stops near
     # eps32·κ(A) ≈ 6e-8 · 1.7e3 ≈ 1e-4 for this operator
     check(r["converged"] and r["rel_res_norm"] <= 1e-3,
@@ -718,6 +883,7 @@ def phase_64(report):
 
 def phase_128(report):
     r = report["lap128_f64"] = run_laplacian(128, "float64")
+    KEEP["lap128_state"] = r.pop("state")   # for the kernel checks
     check(r["rows"] == 2097152 and r["nnz"] == 14581760,
           f"128^3: {r['rows']} rows / {r['nnz']} nnz")
     check(r["converged"] and r["rel_res_norm"] <= 1e-8,
@@ -891,8 +1057,7 @@ def phase_krylov_variants(report):
 
 
 def phase_mgr_kernels(report):
-    """Each kernel against its plain version at mgr_64's MGR shapes, with
-    the CSR kernel's tile size swept on P0 and R0."""
+    """Each kernel against its plain version at mgr_64's MGR shapes."""
     import torch
 
     state = KEEP.pop("mgr64_state")
@@ -906,9 +1071,6 @@ def phase_mgr_kernels(report):
             (f"MGR coarsest A {A_c.shape[0]}x{A_c.shape[1]}", A_c)):
         checks.matrix(shape_name, E, torch.float64)
     report["kernel_checks"].extend(checks.rows)
-    for shape_name, E in (("MGR P0", lv0.P), ("MGR R0", lv0.R)):
-        report.setdefault("csr_tile_sweep", []).extend(
-            tile_sweep(shape_name, E))
     del state
     torch.cuda.empty_cache()
 
@@ -1026,6 +1188,7 @@ def phase_seq64(report):
     """Two timesteps of two Newton systems at nx = 64 (786,432 rows each),
     FGMRES + ex7-reuse's MGR with per-timestep reuse, through the library
     API once per system, against the JAX package's pinned counts."""
+    import contextlib
     import tempfile
 
     import numpy as np
@@ -1068,7 +1231,11 @@ def phase_seq64(report):
             drv.precon_create()
             rebuilt = drv.precon is not before
             drv.linear_solver_create()
-            with profile(activities=[ProfilerActivity.CPU]) as prof:
+            # the setup split of the first rebuild (reading a profile of a
+            # multi-second setup takes seconds itself)
+            prof = (profile(activities=[ProfilerActivity.CPU]) if k == 0
+                    else contextlib.nullcontext())
+            with prof:
                 t0 = time.perf_counter()
                 drv.linear_solver_setup()
                 torch.cuda.synchronize()
@@ -1079,7 +1246,7 @@ def phase_seq64(report):
             sysk = {"k": k, "rebuilt": rebuilt, "iters": res.iters,
                     "rel_res_norm": res.rel_res_norm, "host_rel_res": host_rel,
                     "setup_s": setup_s, "solve_s": res.solve_time}
-            if rebuilt:
+            if k == 0:
                 sysk["setup_split_s"] = {
                     "ilu0_factor": _span_seconds(prof,
                                                  "hypredrv::ilu0_factor"),
@@ -1097,14 +1264,13 @@ def phase_seq64(report):
                   f"(host {host_rel!r}; JAX {JAX_RELRES_SEQ64[k]!r}), setup "
                   f"{setup_s:.3f} s, solve {res.solve_time:.4f} s"
                   + (f", setup split {sysk['setup_split_s']}"
-                     if rebuilt else ""))
+                     if k == 0 else ""))
             if k == len(seq) - 1:
-                # a warm solve and a profiled one on the reused preconditioner
-                drv.reset_initial_guess()
-                out["solve_warm_s"] = drv.linear_solver_apply().solve_time
-                print(f"  warm solve of system {k}: "
-                      f"{out['solve_warm_s']:.4f} s")
+                # a warm solve on the reused preconditioner, profiled (the
+                # profiler records device activity only, so its wall time
+                # is the warm solve's)
                 out["profile_reused"] = profile_solve(drv)
+                out["solve_warm_s"] = out["profile_reused"]["wall_s"]
                 lv0, lv1 = drv.precon.state.levels
                 KEEP["seq64_ilu"] = lv1.g_state
                 check(lv0.f_kind == "amg", f"seq_64: level 0 F-relaxation "
@@ -1155,6 +1321,456 @@ def phase_seq_kernels(report):
     torch.cuda.empty_cache()
 
 
+def run_config(path, overrides=()):
+    """A config file through the CLI on the card; its driver."""
+    from hypredrive_tpu_torch import cli
+
+    collect = []
+    rc = cli.run_one_config(path, overrides=[("general:print_config_params",
+                                              "off"), *overrides],
+                            collect=collect)
+    check(rc == 0, f"{path}: cli returned {rc}")
+    return collect[0]
+
+
+def elasticity_driver(dims, config):
+    """elasticity.py's set-up: the matrix, the interleaved xyz dofmap, the
+    six rigid-body modes as the near null space, b = ones."""
+    import numpy as np
+    from hypredrive_tpu_torch import HypreDrive
+    from hypredrive_tpu_torch.ops.csr import elasticity_3d, rigid_body_modes
+
+    A, coords = elasticity_3d(*dims)
+    rbm = rigid_body_modes(coords, ndim=3)
+    n = A.shape[0]
+    drv = HypreDrive()
+    drv.set_library_mode()
+    drv.input_args_parse(config)
+    drv.set_matrix_from_csr(A.indptr, A.indices, A.data)
+    drv.system.set_dofmap(np.arange(n) % 3)
+    drv.set_near_nullspace([rbm[:, k] for k in range(rbm.shape[1])])
+    drv.set_rhs(np.ones(n))
+    return drv, A
+
+
+def elasticity_solves(drv, A, count, keep_last=False):
+    """elasticity.py's solve loop: per solve (iters, true rel res, host
+    rel res, setup s, solve s); the last preconditioner is kept when
+    ``keep_last``."""
+    import numpy as np
+    import torch
+
+    out = []
+    for i in range(count):
+        drv.annotate_begin("Run", i)
+        drv.reset_initial_guess()
+        drv.precon_create()
+        drv.linear_solver_create()
+        t0 = time.perf_counter()
+        drv.linear_solver_setup()
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        res = drv.linear_solver_apply()
+        x = drv.get_solution()
+        host = float(np.linalg.norm(1.0 - A @ x) / np.sqrt(A.shape[0]))
+        check(np.all(np.isfinite(x)), "elasticity: solution not finite")
+        out.append({"iters": res.iters, "rel_res_norm": res.rel_res_norm,
+                    "host_rel_res": host, "setup_s": setup_s,
+                    "solve_s": res.solve_time})
+        if not (keep_last and i == count - 1):
+            drv.precon_destroy()
+            drv.linear_solver_destroy()
+        drv.annotate_end("Run", i)
+    return out
+
+
+def phase_elasticity(report):
+    """elasticity.py's flow at 48×24×24 cells, with and without the rigid
+    body modes, and at its 12×6×6 default."""
+    from hypredrive_tpu_torch.config.presets import register_precon_preset
+
+    register_precon_preset(*ELASTICITY_PRESET)
+    out = report["elasticity_rbm"] = {}
+    t0 = time.perf_counter()
+    drv, A = elasticity_driver((48, 24, 24), ELASTICITY_CONFIG)
+    out["generate_s"] = time.perf_counter() - t0
+    check(A.shape[0] == 88200, f"elasticity: {A.shape[0]} rows")
+    out.update(rows=A.shape[0], nnz=int(A.nnz))
+    out["solves"] = elasticity_solves(drv, A, 3, keep_last=True)
+    levels = drv.precon.state.levels
+    out["level_rows"] = [lv.A.shape[0] for lv in levels]
+    drv.reset_initial_guess()
+    out["solve_warm_s"] = drv.linear_solver_apply().solve_time
+    out["profile"] = profile_solve(drv)
+    KEEP["elasticity_A"] = drv.system.A
+    drv.stats_print()
+    drv.destroy()
+    print(f"elasticity 48x24x24: {A.shape[0]} rows, {A.nnz} nnz (generated "
+          f"in {out['generate_s']:.3f} s), levels {out['level_rows']}, "
+          f"solves {[(s_['iters'], s_['rel_res_norm']) for s_ in out['solves']]}"
+          f" (JAX package {JAX_ITERS_ELASTICITY_48} each), setup s "
+          f"{[round(s_['setup_s'], 3) for s_ in out['solves']]}, solve s "
+          f"{[round(s_['solve_s'], 4) for s_ in out['solves']]}, warm "
+          f"{out['solve_warm_s']:.4f} s")
+    for name, dims, config, golden in (
+            ("variant0", (48, 24, 24), ELASTICITY_V0,
+             JAX_ITERS_ELASTICITY_48_V0),
+            ("default_12", (12, 6, 6), ELASTICITY_CONFIG,
+             JAX_ITERS_ELASTICITY_12)):
+        d2, A2 = elasticity_driver(dims, config)
+        (r,) = elasticity_solves(d2, A2, 1)
+        d2.destroy()
+        out[name] = r
+        print(f"elasticity {dims} {name}: {r['iters']} iterations (JAX "
+              f"package {golden}), rel res {r['rel_res_norm']:.3e}, setup "
+              f"{r['setup_s']:.3f} s, solve {r['solve_s']:.4f} s")
+        check(abs(r["iters"] - golden) <= 1,
+              f"elasticity {name}: {r['iters']} iterations, JAX {golden}")
+    check(out["default_12"]["iters"] <= 21,
+          "elasticity 12x6x6: outside the reference's golden class (21)")
+    for r in [*out["solves"], out["variant0"], out["default_12"]]:
+        # the JAX package's 48×24×24 solves end at 9.65e-7
+        check(r["rel_res_norm"] <= 1.02e-6 and r["host_rel_res"] <= 1.02e-6,
+              f"elasticity: true rel res {r['rel_res_norm']:.3e} (host "
+              f"{r['host_rel_res']:.3e}) > 1.02e-6")
+    for r in out["solves"]:
+        check(abs(r["iters"] - JAX_ITERS_ELASTICITY_48) <= 1,
+              f"elasticity: {r['iters']} iterations, JAX package "
+              f"{JAX_ITERS_ELASTICITY_48}")
+
+
+def convdif_driver(A, overrides=()):
+    """convdif-gmres-air.yml through the library API, A set."""
+    from hypredrive_tpu_torch import HypreDrive
+
+    drv = HypreDrive()
+    drv.set_library_mode()
+    drv.input_args_parse(CONVDIF_AIR, [("general:statistics", "off"),
+                                       *overrides])
+    drv.set_matrix_from_csr(A.indptr, A.indices, A.data)
+    return drv
+
+
+def phase_convdif(report):
+    """GMRES + AIR on the 1024² upwind convection-diffusion operator, then
+    convdif.py's transient loop at its defaults."""
+    import numpy as np
+    import torch
+    from hypredrive_tpu_torch.ops.csr import convection_diffusion_2d
+
+    t0 = time.perf_counter()
+    A = convection_diffusion_2d(1024, eps=1e-3)
+    gen_s = time.perf_counter() - t0
+    check(A.shape[0] == 1048576, f"convdif: {A.shape[0]} rows")
+    drv = convdif_driver(A)
+    drv.set_rhs(np.ones(A.shape[0]))
+    drv.precon_create()
+    drv.linear_solver_create()
+    t0 = time.perf_counter()
+    drv.linear_solver_setup()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    res = drv.linear_solver_apply()
+    x = drv.get_solution()
+    host = float(np.linalg.norm(1.0 - A @ x) / np.sqrt(A.shape[0]))
+    state = drv.precon.state
+    out = report["convdif_air"] = {
+        "rows": A.shape[0], "nnz": int(A.nnz), "generate_s": gen_s,
+        "setup_s": setup_s, "iters": res.iters,
+        "rel_res_norm": res.rel_res_norm, "host_rel_res": host,
+        "solve_s": res.solve_time,
+        "level_rows": [lv.A.shape[0] for lv in state.levels],
+        "smoother": state.levels[0].smoother}
+    drv.reset_initial_guess()
+    out["solve_warm_s"] = drv.linear_solver_apply().solve_time
+    out["profile"] = profile_solve(drv)
+    KEEP["convdif_R0"] = state.levels[0].R
+    drv.destroy()
+    print(f"convdif_air 1024^2: {A.shape[0]} rows, {A.nnz} nnz, levels "
+          f"{out['level_rows']} ({out['smoother']}); setup {setup_s:.3f} s; "
+          f"{res.iters} iterations (JAX package {JAX_ITERS_CONVDIF_1024}), "
+          f"rel res {res.rel_res_norm:.3e} (host {host:.3e}), first solve "
+          f"{res.solve_time:.4f} s, warm {out['solve_warm_s']:.4f} s")
+    check(abs(res.iters - JAX_ITERS_CONVDIF_1024) <= 1,
+          f"convdif_air: {res.iters} iterations, JAX package "
+          f"{JAX_ITERS_CONVDIF_1024}")
+    check(res.converged and res.rel_res_norm <= 1e-8 and host <= 1e-8
+          and np.all(np.isfinite(x)),
+          f"convdif_air: rel res {res.rel_res_norm:.3e} (host {host:.3e})")
+
+    # convdif.py's timestep loop (n = 40, 10 steps, velocity (1, 0.5))
+    n = 40
+    g = (np.arange(n) + 1.0) / (n + 1)
+    X, Y = np.meshgrid(g, g, indexing="xy")
+    c = np.exp(-80.0 * ((X - 0.2) ** 2 + (Y - 0.2) ** 2)).ravel()
+    drv = None
+    dt, steps = 0.01, []
+    for step, golden in enumerate(JAX_ITERS_CONVDIF_TRANSIENT, start=1):
+        At = convection_diffusion_2d(n, eps=1e-3, velocity=(1.0, 0.5), dt=dt)
+        if drv is None:
+            drv = convdif_driver(At)
+        else:
+            drv.set_matrix_from_csr(At.indptr, At.indices, At.data)
+        drv.annotate_level_begin("timestep", step)
+        drv.set_rhs(c / dt)
+        drv.set_initial_guess(c)
+        drv.precon_create()
+        drv.linear_solver_create()
+        drv.linear_solver_setup()
+        r = drv.linear_solver_apply()
+        host = float(np.linalg.norm(c / dt - At @ drv.get_solution())
+                     / np.linalg.norm(c / dt))
+        c = drv.get_solution()
+        drv.precon_destroy()
+        drv.linear_solver_destroy()
+        drv.annotate_level_end("timestep", step)
+        steps.append({"iters": r.iters, "rel_res_norm": r.rel_res_norm,
+                      "host_rel_res": host})
+        check(abs(r.iters - golden) <= 1,
+              f"convdif step {step}: {r.iters} iterations, JAX {golden}")
+        check(r.converged and host <= 1e-8,
+              f"convdif step {step}: host rel res {host:.3e}")
+        dt *= 1.5
+    out["transient"] = steps
+    out["transient_levels"] = drv.stats_level_get_count("timestep")
+    drv.destroy()
+    print(f"convdif.py loop (n = 40, 10 steps): iterations "
+          f"{[s_['iters'] for s_ in steps]} (JAX package "
+          f"{list(JAX_ITERS_CONVDIF_TRANSIENT)}), mass {c.sum() / n**2:.6e}")
+    check(out["transient_levels"] == 10, "convdif: timestep frames missing")
+
+
+def phase_lap128_agg_cf(report):
+    """128³ PCG + AMG, one aggressive level, C/F ℓ1-Jacobi relaxation."""
+    r = report["lap128_agg_cf"] = run_laplacian(
+        128, "float64", amg={"aggressive": {"num_levels": 1},
+                             "relaxation": {"type": 18, "order": 1}})
+    del r["state"]
+    oc = r["operator_complexity"]
+    print(f"  operator complexity {oc!r} (JAX package "
+          f"{JAX_OC_LAP128_AGG_CF!r}), smoothers {r['smoothers']}")
+    check(r["smoothers"] == ["cf-l1-jacobi"],
+          f"lap128_agg_cf: smoothers {r['smoothers']}")
+    check(abs(r["iters"] - JAX_ITERS_LAP128_AGG_CF) <= 1,
+          f"lap128_agg_cf: {r['iters']} iterations, JAX package "
+          f"{JAX_ITERS_LAP128_AGG_CF}")
+    check(abs(oc / JAX_OC_LAP128_AGG_CF - 1) <= 1e-12,
+          f"lap128_agg_cf: operator complexity {oc}, JAX package "
+          f"{JAX_OC_LAP128_AGG_CF}")
+    check(r["converged"] and r["rel_res_norm"] <= 1e-8,
+          f"lap128_agg_cf: rel res {r['rel_res_norm']:.3e}")
+
+
+def _eig_distance(a, b):
+    """max over a of the distance to the nearest of b, relative to |a|."""
+    import numpy as np
+
+    worst = 0.0
+    for s_ in range(0, len(a), 256):
+        blk = a[s_:s_ + 256]
+        d = np.abs(blk[:, None] - b[None, :]).min(axis=1)
+        worst = max(worst, float((d / np.abs(blk)).max()))
+    return worst
+
+
+def phase_ex6(report):
+    """examples/ex6.yml through the CLI: M⁻¹A column by column on the card
+    (one MGR apply per column), dense eig on the host."""
+    import numpy as np
+
+    prefix = os.path.join("build", "ex6", "eig")
+    os.makedirs(os.path.dirname(prefix), exist_ok=True)
+    t0 = time.perf_counter()
+    drv = run_config(os.path.join("examples", "ex6.yml"),
+                     [("linear_system:eigspec:output_prefix", prefix)])
+    wall = time.perf_counter() - t0
+    (e,) = drv.stats.entries
+    a = np.loadtxt(f"{prefix}_eigenvalues.txt", skiprows=1, ndmin=2)
+    w = a[:, 0] + 1j * a[:, 1]
+    ref = np.load(JAX_EX6_EIGENVALUES)
+    sorted_dev = float(np.abs(np.sort_complex(w) - np.sort_complex(ref)).max()
+                       / np.abs(ref).max())
+    nearest = max(_eig_distance(w, ref), _eig_distance(ref, w))
+    report["ex6_eigspec"] = {"count": len(w), "wall_s": wall,
+                             "sorted_rel_dev": sorted_dev,
+                             "nearest_rel_dev": nearest, "iters": e.iters,
+                             "rel_res_norm": e.rel_res_norm}
+    print(f"ex6: {len(w)} eigenvalues of M^-1 A in {wall:.3f} s (with the "
+          f"solve), against the JAX package's: sorted rel dev {sorted_dev:.3e},"
+          f" nearest rel dev {nearest:.3e}; solve {e.iters} iterations")
+    check(len(w) == len(ref) == 5184, f"ex6: {len(w)} eigenvalues")
+    check(sorted_dev <= EX6_EIG_TOL and nearest <= EX6_EIG_TOL,
+          f"ex6: eigenvalues deviate from the JAX package's by "
+          f"{max(sorted_dev, nearest):.3e}")
+    check(e.iters == GOLDEN_EX3_ITERS and e.rel_res_norm <= 1e-6,
+          f"ex6: the solve took {e.iters} iterations")
+
+
+def phase_ex9(report):
+    """examples/ex9-print-system.yml through the CLI: the dump tree and its
+    contents against the input and the JAX package's solution."""
+    import shutil
+
+    import numpy as np
+    from hypredrive_tpu_torch.io import ij
+
+    d = os.path.join("build", "dump_ex9")
+    shutil.rmtree(d, ignore_errors=True)
+    drv = run_config(os.path.join("examples", "ex9-print-system.yml"),
+                     [("linear_system:print_system:dirname", d)])
+    (e,) = drv.stats.entries
+    files = sorted(os.path.relpath(os.path.join(r, f), d)
+                   for r, _, fs in os.walk(d) for f in fs)
+    A_in, _ = ij.read_matrix_auto("data/ps3d10pt7/np1/IJ.out.A")
+    b_in = ij.read_vector_auto("data/ps3d10pt7/np1/IJ.out.b")
+    x = ij.read_vector_auto(os.path.join(d, "ls_00000/apply/IJ.out.x"))
+    norms = (float(np.linalg.norm(x)), float(np.abs(x).sum()),
+             float(np.abs(x).max()))
+    dev = max(abs(a / b - 1) for a, b in zip(norms, JAX_EX9_X_NORMS))
+    report["ex9_print_system"] = {"files": files, "x_norms": norms,
+                                  "x_norms_rel_dev": dev, "iters": e.iters}
+    print(f"ex9: {len(files)} files dumped, solution norms {norms} (JAX "
+          f"package {JAX_EX9_X_NORMS}, max rel dev {dev:.3e})")
+    check(tuple(files) == JAX_EX9_FILES, f"ex9: dump tree {files}")
+    for stage in ("build", "apply"):
+        A_d, _ = ij.read_matrix_auto(os.path.join(d, f"ls_00000/{stage}/"
+                                                  "IJ.out.A"))
+        check((A_d != A_in).nnz == 0, f"ex9: {stage} matrix dump differs")
+        check(np.array_equal(ij.read_vector_auto(os.path.join(
+            d, f"ls_00000/{stage}/IJ.out.b")), b_in),
+              f"ex9: {stage} rhs dump differs")
+        check(not ij.read_vector_auto(os.path.join(
+            d, f"ls_00000/{stage}/IJ.out.x0")).any(),
+              f"ex9: {stage} x0 dump not zero")
+    check(dev <= 1e-8, f"ex9: solution dump deviates by {dev:.3e}")
+    check(e.iters == GOLDEN_EX1_ITERS, f"ex9: {e.iters} iterations")
+
+
+def phase_lsseq_ex7(report):
+    """data/poroseq packed by the port's tools/lsseq.py into a zlib
+    container, then ex7 through sequence_filename."""
+    import re
+
+    from hypredrive_tpu_torch.tools import lsseq as lsseq_cli
+
+    os.makedirs("build", exist_ok=True)
+    container = os.path.join("build", "poroseq.lsseq")
+    pat = os.path.join("data", "poroseq", "np1", "ls_%05d", "{}")
+    t0 = time.perf_counter()
+    rc = lsseq_cli.main(["pack", container, "-m", pat.format("IJ.out.A"),
+                         "-r", pat.format("IJ.out.b"),
+                         "-d", pat.format("dofmap.out"), "--codec", "zlib"])
+    pack_s = time.perf_counter() - t0
+    check(rc == 0, f"lsseq pack returned {rc}")
+    with open(os.path.join("examples", "ex7.yml")) as f:
+        text = re.sub(r"linear_system:\n(  .*\n)+",
+                      f"linear_system:\n  sequence_filename: {container}\n",
+                      f.read())
+    cfg = os.path.join("build", "ex7-lsseq.yml")
+    with open(cfg, "w") as f:
+        f.write(text)
+    entries = run_config(cfg).stats.entries
+    out = report["lsseq_ex7"] = {
+        "pack_s": pack_s, "bytes": os.path.getsize(container),
+        "iters": [e.iters for e in entries],
+        "rel_res_norm": [e.rel_res_norm for e in entries]}
+    print(f"lsseq_ex7: packed in {pack_s:.3f} s ({out['bytes']} bytes); "
+          f"iterations {out['iters']} (JAX package {list(JAX_ITERS_EX7)})")
+    check(len(entries) == len(JAX_ITERS_EX7),
+          f"lsseq_ex7: {len(entries)} systems")
+    for i, (e, g) in enumerate(zip(entries, JAX_ITERS_EX7)):
+        check(abs(e.iters - g) <= 1 and e.converged
+              and e.rel_res_norm <= 1e-6,
+              f"lsseq_ex7 system {i}: {e.iters} iterations (JAX {g}), rel "
+              f"res {e.rel_res_norm:.3e}")
+
+
+def ex3_config(scaling=None, rhs_mode=None):
+    """ex3's system and GMRES + MGR, with a scaling type or an rhs mode."""
+    base = os.path.join("data", "multiphys2k", "np1")
+    ls = {"matrix_filename": os.path.join(base, "IJ.out.A"),
+          "dofmap_filename": os.path.join(base, "dofmap.out")}
+    if rhs_mode:
+        ls["rhs_mode"] = rhs_mode
+    else:
+        ls["rhs_filename"] = os.path.join(base, "IJ.out.b")
+    solver = {"gmres": {}}
+    if scaling:
+        solver["scaling"] = {"enabled": True, "type": scaling}
+    return {"general": {"statistics": False}, "linear_system": ls,
+            "solver": solver, "preconditioner": EX3_MGR}
+
+
+def phase_scaling_xref(report):
+    """ex3 with rhs_l2 and dofmap_mag scaling; randsol's error norm and
+    per-block error history against the JAX package's."""
+    import numpy as np
+    from hypredrive_tpu_torch import HypreDrive
+
+    out = report["scaling_xref"] = {}
+    for key in ("rhs_l2", "dofmap_mag", "randsol"):
+        drv = HypreDrive()
+        drv.set_library_mode()
+        drv.input_args_from_dict(
+            ex3_config(rhs_mode="randsol") if key == "randsol"
+            else ex3_config(scaling=key))
+        sys_ = drv.linear_system_build()
+        b = sys_.b.cpu().numpy()
+        drv.precon_create()
+        drv.linear_solver_create()
+        drv.linear_solver_setup()
+        res = drv.linear_solver_apply()
+        x = drv.get_solution()
+        host = float(np.linalg.norm(b - sys_.A_host @ x) / np.linalg.norm(b))
+        r = out[key] = {"iters": res.iters, "rel_res_norm": res.rel_res_norm,
+                        "host_rel_res": host}
+        if key == "randsol":
+            hist = res.error_histories[:res.iters + 1]
+            ref = np.asarray(JAX_ERROR_HISTORY_RANDSOL)
+            r["error_norm"] = res.error_norm
+            r["error_history"] = hist.tolist()
+            k = min(len(hist), len(ref))
+            r["history_rel_dev"] = float(np.abs(hist[:k] / ref[:k] - 1).max())
+            r["error_norm_rel_dev"] = abs(res.error_norm
+                                          / JAX_ERROR_NORM_RANDSOL - 1)
+            golden = JAX_ITERS_RANDSOL
+        else:
+            golden = JAX_ITERS_SCALING[key]
+        drv.destroy()
+        print(f"ex3 {key}: {res.iters} iterations (JAX package {golden}), "
+              f"rel res {res.rel_res_norm:.3e} (host {host:.3e})"
+              + (f", error norm {r['error_norm']!r} (rel dev "
+                 f"{r['error_norm_rel_dev']:.3e}), error history rel dev "
+                 f"{r['history_rel_dev']:.3e}" if key == "randsol" else ""))
+        check(res.iters == golden, f"{key}: {res.iters} iterations, JAX "
+                                   f"package {golden}")
+        check(res.converged and host <= 1e-6 and np.all(np.isfinite(x)),
+              f"{key}: host rel res {host:.3e}")
+    r = out["randsol"]
+    check(r["error_norm_rel_dev"] <= 1e-6 and r["history_rel_dev"] <= 1e-6
+          and len(r["error_history"]) == len(JAX_ERROR_HISTORY_RANDSOL),
+          f"randsol: error norm / history deviate by "
+          f"{r['error_norm_rel_dev']:.3e} / {r['history_rel_dev']:.3e}")
+
+
+def phase_slice_kernels(report):
+    """Each kernel against its plain version at the elasticity fine
+    operator (DIA part and CSR remainder) and at convdif_air's level-0 AIR
+    restriction (about 8 entries a row), float64 (rel 1e-12)."""
+    import torch
+
+    A = KEEP.pop("elasticity_A")
+    R0 = KEEP.pop("convdif_R0")
+    checks = KernelChecks()
+    for shape_name, E in (
+            (f"elasticity A0 {A.shape[0]}x{A.shape[1]}", A),
+            (f"AIR R0 {R0.shape[0]}x{R0.shape[1]}", R0)):
+        checks.matrix(shape_name, E, torch.float64)
+    report["kernel_checks"].extend(checks.rows)
+    del A, R0
+    torch.cuda.empty_cache()
+
+
 KERNELS = {
     "dia_spmv": ("hypredrive_tpu_torch/csrc/dia_spmv.cu",
                  "hypredrive_tpu/ops/pallas_dia.py:99 (K1); "
@@ -1187,7 +1803,14 @@ PATHS = (("ex1", phase_ex1, BOTH), ("lap64", phase_64, BOTH),
          ("seq_ex7_frelax_reuse", phase_seq_ex7_frelax_reuse, BOTH),
          ("amg_gs_fsai", phase_amg_gs_fsai, BOTH),
          ("ilu_variants", phase_ilu_variants, BOTH),
-         ("seq_64", phase_seq64, BOTH))
+         ("seq_64", phase_seq64, BOTH),
+         ("elasticity_rbm", phase_elasticity, BOTH),
+         ("convdif_air", phase_convdif, BOTH),
+         ("lap128_agg_cf", phase_lap128_agg_cf, BOTH),
+         ("ex6_eigspec", phase_ex6, BOTH),
+         ("ex9_print_system", phase_ex9, BOTH),
+         ("lsseq_ex7", phase_lsseq_ex7, BOTH),
+         ("scaling_xref", phase_scaling_xref, BOTH))
 
 
 def main() -> int:
@@ -1220,12 +1843,12 @@ def main() -> int:
             failures.append(f"{name}: {type(exc).__name__}: {exc}")
             print(f"PHASE {name} FAILED: {exc}", file=sys.stderr)
         report.setdefault("phase_s", {})[name] = time.perf_counter() - t0
+        print(f"phase {name}: {report['phase_s'][name]:.3f} s")
 
     run("env", phase_env)
     if baseline_src and not failures:
         run("baseline", lambda _: load_baseline(baseline_src))
     if not failures:
-        run("kernels", phase_kernels)
         launches = {k: 0 for k in counters}
         for name, fn, kernels_run in PATHS:
             # each path's own count: zeroed just before, read just after
@@ -1241,14 +1864,18 @@ def main() -> int:
                     failures.append(f"launches: {name} never launched {k}")
         report["launches"] = launches
         print(f"main-path kernel launches: {launches}")
-        for name, key, fn in (("mgr_kernels", "mgr64_state",
+        for name, key, fn in (("kernels", "lap128_state", phase_kernels),
+                              ("mgr_kernels", "mgr64_state",
                                phase_mgr_kernels),
-                              ("seq_kernels", "seq64_ilu", phase_seq_kernels)):
+                              ("seq_kernels", "seq64_ilu", phase_seq_kernels),
+                              ("slice_kernels", "convdif_R0",
+                               phase_slice_kernels)):
             if key in KEEP:
                 run(name, fn)
             else:
                 failures.append(f"{name}: no operators to check")
     report["total_s"] = time.perf_counter() - t_start
+    print(f"total: {report['total_s']:.3f} s")
     report["failures"] = failures
     os.makedirs("build", exist_ok=True)
     with open(os.path.join("build", "chip_smoke.json"), "w") as f:

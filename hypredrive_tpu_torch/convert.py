@@ -6,7 +6,8 @@ code can be compared without any difference from setup.  The argument
 objects are duck-typed (``hypredrive_tpu.ops.device_matrix.EllMatrix``,
 ``hypredrive_tpu.precon.amg.hierarchy.AMGState``,
 ``hypredrive_tpu.precon.mgr.MGRState``, the component states of
-``hypredrive_tpu.precon.components`` and the ILU, FSAI and Schwarz states);
+``hypredrive_tpu.precon.components``, the ILU, FSAI and Schwarz states and
+``hypredrive_tpu.linsys.scaling.ScalingContext``);
 this module imports neither JAX nor the JAX package.
 """
 
@@ -111,7 +112,10 @@ def fsai_state(state, dtype: torch.dtype = torch.float64,
 
 def amg_state(state, dtype: torch.dtype = torch.float64,
               device: torch.device = torch.device("cpu")) -> AMGState:
-    """The JAX package's single-device AMGState as this package's."""
+    """The JAX package's single-device AMGState as this package's: every
+    level's A, P (the two-stage P₁·P₂ of aggressive levels too) and R (Pᵀ
+    or the non-Galerkin AIR R), and the smoother operands by kind (the
+    ``cf-*``/``air-*`` kinds as (d_inv, F-point mask))."""
     def mat(E):
         return ell_matrix(E, dtype, device) if E is not None else None
 
@@ -130,6 +134,18 @@ def amg_state(state, dtype: torch.dtype = torch.float64,
         coarse_inv=torch.tensor(np.array(state.coarse_inv), dtype=dtype,
                                 device=device),
         cycle_type=int(state.cycle_type), max_iter=int(state.max_iter))
+
+
+def scaling_state(ctx, dtype: torch.dtype = torch.float64,
+                  device: torch.device = torch.device("cpu")):
+    """The JAX package's ScalingContext (its Sl and Sr vectors) as this
+    package's, before ``apply``."""
+    from .linsys.scaling import ScalingContext
+
+    def vec(a):
+        return _vec(a, dtype, device) if a is not None else None
+
+    return ScalingContext(sl=vec(ctx.sl), sr=vec(ctx.sr))
 
 
 def component_state(kind: str, state, dtype: torch.dtype = torch.float64,

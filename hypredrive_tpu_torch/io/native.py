@@ -1,6 +1,6 @@
 """ctypes bindings for the native C++ host helpers (native/src/ij_io.cpp,
 native/src/amg_setup.cpp, hypredrive_tpu_torch/csrc/ilu0.cpp): IJ I/O, the
-AMG setup passes and the ILU(0) factorization.
+AMG setup passes, the LZ4 block codec and the ILU(0) factorization.
 
 The shared library is compiled on first use with ``g++`` from those
 sources into ``build/hypredrive_tpu_torch/native-<hash>/``, keyed by a
@@ -148,6 +148,15 @@ def get_lib() -> Optional[ctypes.CDLL]:
         lib.hdrv_dia_split_fill.restype = None
         lib.hdrv_dia_split_fill.argtypes = [
             ctypes.c_void_p, i64p, f64p, i64p, i64p, ctypes.c_void_p]
+        # raw LZ4 block codec (io/comp.py)
+        lib.hdrv_lz4_compress.restype = ctypes.c_int64
+        lib.hdrv_lz4_compress.argtypes = [
+            ctypes.POINTER(ctypes.c_int8), ctypes.c_int64,
+            ctypes.POINTER(ctypes.c_int8), ctypes.c_int64]
+        lib.hdrv_lz4_decompress.restype = ctypes.c_int64
+        lib.hdrv_lz4_decompress.argtypes = [
+            ctypes.POINTER(ctypes.c_int8), ctypes.c_int64,
+            ctypes.POINTER(ctypes.c_int8), ctypes.c_int64]
         # ILU(0) (hypredrive_tpu_torch/csrc/ilu0.cpp)
         lib.hdtt_ilu0_factor.restype = ctypes.c_int64
         lib.hdtt_ilu0_factor.argtypes = [

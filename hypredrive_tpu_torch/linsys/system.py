@@ -1,11 +1,15 @@
-"""LinearSystem: build matrix/RHS/x0 from config or API.
+"""LinearSystem: build matrix/RHS/x0/xref/dofmap from config or API.
 
 Counterpart of ``hypredrive_tpu/linsys/system.py`` (ref:
 src/internal/linsys.c: ReadMatrix :1123, RHS modes :1779-1842, init-guess
-modes :376-382, filename resolution :833-866) for the inputs the port
-covers: IJ files, generated Laplacians, elasticity and multiphysics
-systems, dofmaps (``dofmap_filename``/``dofmap_basename``, ``dof_labels``),
-``rhs_mode``, ``x0`` and the solve dtype (float64 by default).
+modes :376-382, filename resolution :833-866): IJ and MatrixMarket files,
+lsseq containers (``sequence_filename``), generated Laplacians, elasticity
+and multiphysics systems, a separate preconditioning matrix (precmat),
+dofmaps (``dofmap_filename``/``dofmap_basename``, ``dof_labels``),
+``rhs_mode`` (randsol included), ``x0``, a reference solution (``xref``)
+and the solve dtype (float64 by default).  The post-solve tail undoes
+scaling, projects an exact null space and reports error norms against
+xref.
 
 Device rule: ``exec_policy: host`` (general or linear_system) selects the
 CPU; the default ``device`` selects CUDA and raises a typed error when
@@ -22,14 +26,11 @@ import scipy.sparse as sp
 import torch
 
 from ..core.errors import ErrorCode, HypredrvError
+from ..core.logging import log
 from ..io import ij as ij_io
 from ..ops import csr as csr_ops
 from ..ops.device_matrix import EllMatrix
-
-
-def _not_ported(what: str) -> HypredrvError:
-    return HypredrvError(f"linear_system {what} is not yet ported to "
-                         "hypredrive_tpu_torch", ErrorCode.NOT_IMPLEMENTED)
+from ..ops.vectors import norm2
 
 
 def resolve_dtype(general) -> torch.dtype:
@@ -88,12 +89,19 @@ class LinearSystem:
         self.device = device
         self.A: Optional[EllMatrix] = None
         self.A_host: Optional[sp.csr_matrix] = None
+        self.M_host: Optional[sp.csr_matrix] = None   # precon matrix
         self.b = None
         self.x = None
         self.x0 = None
+        self.xref = None                           # reference solution
         self.dofmap: Optional[np.ndarray] = None   # per-row dof labels
         self.dof_labels = {}                       # symbolic name → label
+        self.nullspace: Optional[np.ndarray] = None       # orthonormal
+        self.near_nullspace: Optional[np.ndarray] = None  # AMG RBMs
+        self.scaling = None                        # active ScalingContext
         self.ls_id = 0
+        self.pattern_id = None      # lsseq sparsity-pattern id
+        self._lsseq = None
 
     @property
     def num_rows(self) -> int:
@@ -114,10 +122,6 @@ class LinearSystem:
               ) -> "LinearSystem":
         ls = input_args.linear_system
         general = input_args.general
-        for key in ("sequence_filename", "precmat_filename",
-                    "precmat_basename", "xref_filename"):
-            if ls.get(key):
-                raise _not_ported(key)
         self = cls(dtype=resolve_dtype(general),
                    device=resolve_device(general, ls))
         self.ls_id = ls_id
@@ -138,6 +142,7 @@ class LinearSystem:
             if stats:
                 stats.annotate_end("rhs")
         self._build_x0(ls, ls_id, previous)
+        self._build_xref(ls, ls_id)
 
         if ls.get("dofmap_filename") or ls.get("dofmap_basename"):
             if stats:
@@ -155,7 +160,18 @@ class LinearSystem:
 
     def _build_matrix(self, ls, ls_id: int):
         gen = ls.get("generate")
-        if gen and gen.get("kind"):
+        if ls.get("sequence_filename"):
+            # lsseq container (ref: linsys.c lsseq reader path)
+            from ..io.lsseq import LSSeqFile
+
+            seq = LSSeqFile(ls.sequence_filename)
+            self._lsseq = seq
+            self.A_host = seq.read_matrix(ls_id)
+            dof = seq.read_dofmap(ls_id)
+            if dof is not None:
+                self.dofmap = dof
+            self.pattern_id = seq.pattern_id(ls_id)
+        elif gen and gen.get("kind"):
             self.A_host, dofmap = _generate_matrix(gen)
             if dofmap is not None:
                 self.dofmap = dofmap
@@ -167,14 +183,25 @@ class LinearSystem:
                     "linear_system: no matrix source (filename/basename/"
                     "generate)", ErrorCode.MISSING_KEY)
             if ls.type == 3 or path.endswith(".mtx"):
-                raise _not_ported("MatrixMarket input")
-            self.A_host, _ = ij_io.read_matrix_auto(path)
+                from .mtx import read_mtx
+
+                self.A_host = read_mtx(path)
+            else:
+                self.A_host, _ = ij_io.read_matrix_auto(path)
         self.A = EllMatrix.from_csr(self.A_host, dtype=self.dtype,
                                     device=self.device)
+        # separate preconditioner matrix (ref: SetPrecMatrix)
+        pm = resolve_filename(ls, ls_id, ls.get("precmat_filename", ""),
+                              ls.get("precmat_basename", ""))
+        if pm:
+            self.M_host, _ = ij_io.read_matrix_auto(pm)
 
     def _build_rhs(self, ls, ls_id: int):
         n = self.num_rows
         mode = ls.rhs_mode
+        if self._lsseq is not None:
+            self.b = self._vec(self._lsseq.read_rhs(ls_id))
+            return
         path = resolve_filename(ls, ls_id, ls.rhs_filename, ls.rhs_basename)
         if path and mode in (0, 2):  # file given (mode default/file)
             vec = ij_io.read_vector_auto(path)
@@ -190,7 +217,9 @@ class LinearSystem:
             rng = np.random.default_rng(2023 + ls_id)
             self.b = self._vec(rng.uniform(-1, 1, n))
         elif mode == 4:  # randsol: random xref, b = A·xref
-            raise _not_ported("rhs_mode randsol")
+            rng = np.random.default_rng(2023 + ls_id)
+            self.xref = self._vec(rng.uniform(-1, 1, n))
+            self.b = self.A.matvec(self.xref)
         else:  # zeros
             self.b = self._vec(np.zeros(n))
 
@@ -213,6 +242,11 @@ class LinearSystem:
             self.x0 = previous.x.to(dtype=self.dtype, device=self.device)
         else:
             self.x0 = self._vec(np.zeros(n))
+
+    def _build_xref(self, ls, ls_id: int):
+        path = resolve_filename(ls, ls_id, ls.get("xref_filename", ""), "")
+        if path:
+            self.xref = self._vec(ij_io.read_vector_auto(path))
 
     @classmethod
     def from_csr(cls, input_args, indptr, indices, data, stats=None
@@ -252,6 +286,9 @@ class LinearSystem:
         self.x0 = self._vec(values)
         self.x = self.x0
 
+    def set_xref_array(self, values: np.ndarray):
+        self.xref = self._vec(values)
+
     def set_dofmap(self, dofmap: np.ndarray):
         self.dofmap = np.asarray(dofmap)
 
@@ -261,6 +298,49 @@ class LinearSystem:
 
     def get_solution(self) -> np.ndarray:
         return self.x.cpu().numpy()
+
+    # -- transforms --------------------------------------------------------
+
+    def apply_scaling(self, scaling_args):
+        if not scaling_args or not scaling_args.get("enabled"):
+            return
+        from .scaling import ScalingContext
+
+        if self.scaling is None:
+            self.scaling = ScalingContext.compute(self, scaling_args)
+            self.scaling.apply(self)
+
+    def postprocess_solution(self, result):
+        """Undo scaling, project the null space, compute error norms
+        (ref: HYPREDRV_LinearSolverApply tail, src/HYPREDRV.c:3307-3344)."""
+        if self.scaling is not None:
+            self.scaling.undo(self)
+            self.scaling = None
+        if self.nullspace is not None:
+            from .nullspace import project_nullspace
+
+            self.x = project_nullspace(self.x, self.nullspace)
+        if self.xref is not None:
+            e2, xn = (float(v) for v in torch.stack(
+                [norm2(self.x - self.xref), norm2(self.xref)]).tolist())
+            rel = e2 / xn if xn > 0 else e2
+            log(1, f"error norms vs reference solution: "
+                   f"L2 {e2:.6e} (rel {rel:.6e})")
+            result.error_norm = e2
+
+    # -- diagnostics -------------------------------------------------------
+
+    def block_residual_norms(self, x=None):
+        """Per-dof-label residual norms (ref: linsys.h:214-228)."""
+        if self.dofmap is None:
+            return {}
+        x = self.x if x is None else x
+        r = (self.b - self.A.matvec(x)).cpu().numpy()
+        out = {}
+        for label in np.unique(self.dofmap):
+            mask = self.dofmap == label
+            out[int(label)] = float(np.linalg.norm(r[mask]))
+        return out
 
 
 def _generate_matrix(gen):

@@ -192,7 +192,11 @@ def elasticity_3d(nx: int, ny: Optional[int] = None, nz: Optional[int] = None,
     fixed = np.array([3 * node(i, j, 0) + d
                       for j in range(nny) for i in range(nnx) for d in range(3)])
     keep = np.setdiff1d(np.arange(3 * nnode), fixed)
-    A = sp.csr_matrix(A[np.ix_(keep, keep)], dtype=dtype)
+    # row then column slicing keeps memory linear in nnz (fancy-indexing
+    # both at once goes through a dense index grid); dropping the explicit
+    # zeros the slicing leaves gives the same stored pattern
+    A = sp.csr_matrix(A[keep][:, keep], dtype=dtype)
+    A.eliminate_zeros()
     A.sort_indices()
 
     xs, ys, zs = np.meshgrid(np.arange(nnx), np.arange(nny), np.arange(nnz_),

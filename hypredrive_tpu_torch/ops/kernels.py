@@ -1,9 +1,10 @@
 """Build and load the hand-written CUDA kernels (``csrc/*.cu``).
 
 The kernels have a plain C interface.  On first use ``nvcc`` compiles
-every ``csrc/*.cu`` into one shared library for Hopper (``sm_90a``) under
+every ``csrc/*.cu`` for Hopper (``sm_90a``), one process per source, all
+started together, and links them into one shared library under
 ``build/hypredrive_tpu_torch/cuda-<hash>/``, keyed by a hash of the
-sources and flags, and ``ctypes`` loads it.  Nothing here runs at import
+sources and flags; ``ctypes`` loads it.  Nothing here runs at import
 time: a machine without ``nvcc`` or a card can import every module.
 """
 
@@ -64,12 +65,27 @@ def build() -> str:
                             ErrorCode.EXTERNAL)
     os.makedirs(out_dir, exist_ok=True)
     tmp = f"{so}.{os.getpid()}.tmp"
-    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, *srcs],
-                          capture_output=True, text=True, timeout=900)
-    if proc.returncode != 0:
-        raise HypredrvError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}",
-            ErrorCode.EXTERNAL)
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    objs = [f"{tmp}.{i}.o" for i in range(len(srcs))]
+    procs = [subprocess.Popen([nvcc, *compile_flags, "-c", "-o", obj, src],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True)
+             for obj, src in zip(objs, srcs)]
+    errs = [p.communicate(timeout=900)[1] for p in procs]
+    failed = [(p.args, p.returncode, err) for p, err in zip(procs, errs)
+              if p.returncode != 0]
+    if not failed:
+        link = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, *objs],
+                              capture_output=True, text=True, timeout=900)
+        if link.returncode != 0:
+            failed.append((link.args, link.returncode, link.stderr))
+    for obj in objs:
+        if os.path.exists(obj):
+            os.remove(obj)
+    if failed:
+        args, rc, err = failed[0]
+        raise HypredrvError(f"nvcc failed ({rc}): {' '.join(args)}\n"
+                            f"{err[-4000:]}", ErrorCode.EXTERNAL)
     os.replace(tmp, so)
     return so
 

@@ -13,7 +13,7 @@ from __future__ import annotations
 import torch
 from torch.profiler import record_function
 
-from .hierarchy import GS_TRI_ITERS, AMGLevel, AMGState, _not_ported
+from .hierarchy import GS_TRI_ITERS, AMGLevel, AMGState
 
 
 def _tri_jacobi(d_inv, T, r):
@@ -30,8 +30,10 @@ def _smooth(level: AMGLevel, x, b, sweeps: int, phase: str = "pre",
             zero_guess: bool = False):
     """sweeps × (x += B(b − Ax)) with the level's smoother.
 
-    ``zero_guess`` marks x == 0 on entry: the first sweep's residual is
-    then just b, saving one A-matvec per level per cycle.
+    ``phase`` matters only for the C/F and AIR schedules (ref:
+    amg.c:895, :986-1015).  ``zero_guess`` marks x == 0 on entry: the first
+    sweep's residual is then just b, saving one A-matvec per level per
+    cycle.
     """
     if sweeps <= 0:
         return x
@@ -65,6 +67,31 @@ def _smooth(level: AMGLevel, x, b, sweeps: int, phase: str = "pre",
                 x = x + _tri_jacobi(d_inv, U,
                                     resid(x, i == 0 and kind == "gs-bwd"))
         return x
+    if kind.startswith("cf-"):
+        # relaxation.order = 1 (hypre BoomerAMGSetRelaxOrder): C points
+        # then F on the down sweep, F then C on the up sweep, each half
+        # against the refreshed residual (ref: amg.c:895)
+        d_inv, fmask = arrays
+        cmask = 1.0 - fmask
+        first, second = ((fmask, cmask) if phase == "post"
+                         else (cmask, fmask))
+        for k in range(sweeps):
+            x = x + first * d_inv * resid(x, k == 0)
+            x = x + second * d_inv * resid(x, False)
+        return x
+    if kind.startswith("air-"):
+        # AIR schedule (ref: amg.c:986-1015): the down sweeps relax every
+        # point; the up sweeps relax F points, and the last one relaxes C
+        # points instead when there are more than two
+        d_inv, fmask = arrays
+        for k in range(sweeps):
+            if phase != "post":
+                x = x + d_inv * resid(x, k == 0)
+                continue
+            mask = (1.0 - fmask) if (sweeps > 2 and k == sweeps - 1) \
+                else fmask
+            x = x + mask * d_inv * resid(x, k == 0)
+        return x
     if kind == "chebyshev":
         d_inv, theta, delta, rhos = arrays
         for i in range(sweeps):
@@ -80,12 +107,10 @@ def _smooth(level: AMGLevel, x, b, sweeps: int, phase: str = "pre",
                 rho_prev = rhos[k]
             x = x + z
         return x
-    if kind in ("jacobi", "l1-jacobi"):
-        (d_inv,) = arrays
-        for i in range(sweeps):
-            x = x + d_inv * resid(x, i == 0)
-        return x
-    raise _not_ported(f"smoother '{kind}'")
+    (d_inv,) = arrays   # jacobi, l1-jacobi
+    for i in range(sweeps):
+        x = x + d_inv * resid(x, i == 0)
+    return x
 
 
 def _cycle(state: AMGState, lvl: int, b):

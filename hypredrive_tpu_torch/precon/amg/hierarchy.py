@@ -12,14 +12,21 @@ levels; only the upload differs.  Each level's A, P and R become
 :class:`~hypredrive_tpu_torch.ops.device_matrix.EllMatrix` on the target
 device, with the smoother vectors beside them.
 
-Ported smoothers: Chebyshev (relax type 16, the default), Jacobi (0, 7),
+Smoothers: Chebyshev (relax type 16, the default), Jacobi (0, 7),
 ℓ1-Jacobi (18), hybrid Gauss-Seidel (the ``gs-*`` kinds: the strict
 triangular parts as device matrices, each triangular solve replaced by
-``GS_TRI_ITERS`` Jacobi corrections) and the FSAI complex smoother on the
+``GS_TRI_ITERS`` Jacobi corrections), the FSAI complex smoother on the
 first ``smoother.num_levels`` levels (the host-sequential ilu/pilut/euclid
-types map to it, as in the JAX package).  C/F and AIR schedules,
-aggressive coarsening and AIR restriction raise a typed "not yet ported"
-error.
+types map to it, as in the JAX package), and the F/C-masked (ℓ1-)Jacobi
+kinds: ``cf-*`` for ``relaxation.order: 1`` and ``air-*`` for
+``relaxation.points: air``, each with the level's {0,1} F-point mask.
+
+Coarsening options: aggressive (two-stage) coarsening on the first
+``aggressive.num_levels`` levels (P = P₁·P₂), AIR restriction
+(``interpolation.restriction_type`` > 0, a non-Galerkin R from
+``air.build_restriction``), and rigid-body-mode interpolation vectors
+(``interp_vectors``, GM2 pattern growth and min-norm re-weighting in
+``rbm.py``).
 """
 
 from __future__ import annotations
@@ -31,8 +38,8 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
-from ...core.errors import ErrorCode, HypredrvError
 from ...ops.device_matrix import EllMatrix
+from .air import build_restriction
 from .coarsen import coarsen
 from .interp import build_interpolation
 from .strength import strength_graph
@@ -45,8 +52,6 @@ _RELAX_KIND = {
     13: "gs-fwd", 14: "gs-bwd", 89: "gs-sym",
     16: "chebyshev",
 }
-PORTED_SMOOTHERS = ("chebyshev", "jacobi", "l1-jacobi",
-                    "gs-fwd", "gs-bwd", "gs-sym")
 
 # Jacobi iterations approximating each triangular solve in the hybrid GS
 # smoothers (z ← D⁻¹(r − L z) repeated); 2 corrections after the D⁻¹r seed
@@ -58,16 +63,11 @@ GS_TRI_ITERS = 2
 FSAI_SMOOTHER_TYPES = (4, 5, 7, 8, 9)
 
 
-def _not_ported(what: str) -> HypredrvError:
-    return HypredrvError(f"AMG {what} is not yet ported to "
-                         "hypredrive_tpu_torch", ErrorCode.NOT_IMPLEMENTED)
-
-
 @dataclass
 class AMGLevel:
     A: EllMatrix
     P: Optional[EllMatrix]          # prolongation (None on coarsest)
-    R: Optional[EllMatrix]          # restriction Pᵀ
+    R: Optional[EllMatrix]          # restriction (Pᵀ unless AIR)
     smooth_arrays: Tuple            # operands of the down smoother
     smoother: str = "l1-jacobi"     # down/pre kind
     pre_sweeps: int = 1
@@ -84,14 +84,19 @@ class AMGState:
     max_iter: int = 1
 
 
-def _galerkin_rap(A_l: sp.csr_matrix, P: sp.csr_matrix) -> sp.csr_matrix:
-    """A_c = Pᵀ·A·P (native fast path, scipy otherwise)."""
-    from ...io.native import amg_rap
+def _galerkin_rap(A_l: sp.csr_matrix, P: sp.csr_matrix,
+                  R_air: Optional[sp.csr_matrix] = None) -> sp.csr_matrix:
+    """A_c = R·A·P: Pᵀ·A·P (the native fast path when it is built) without
+    an AIR restriction, else the non-Galerkin R_air·A·P by scipy."""
+    R = R_air
+    if R is None:
+        from ...io.native import amg_rap
 
-    Ac = amg_rap(sp.csr_matrix(A_l), sp.csr_matrix(P))
-    if Ac is not None:
-        return Ac
-    A_c = sp.csr_matrix(sp.csr_matrix(P.T) @ A_l @ P)
+        Ac = amg_rap(sp.csr_matrix(A_l), sp.csr_matrix(P))
+        if Ac is not None:
+            return Ac
+        R = sp.csr_matrix(P.T)
+    A_c = sp.csr_matrix(R @ A_l @ P)
     A_c.sort_indices()
     return A_c
 
@@ -144,13 +149,22 @@ def _power_lambda_max(A_host: sp.csr_matrix, d_inv: np.ndarray,
 
 
 def _smoother_arrays(kind: str, A_host: sp.csr_matrix, dtype, device,
-                     cheby_args=None, weight: float = 1.0) -> Tuple:
+                     cheby_args=None, weight: float = 1.0,
+                     fmask: Optional[np.ndarray] = None) -> Tuple:
     """Chebyshev: (d_inv, θ, δ, ρ_k); (ℓ1-)Jacobi: (d_inv,); hybrid GS:
-    (d_inv, L_strict or None, U_strict or None).  Vectors and matrices are
-    on ``device``; the Chebyshev scalars stay Python floats."""
+    (d_inv, L_strict or None, U_strict or None); the F/C-masked ``cf-*``
+    and ``air-*`` kinds: their base kind's (d_inv,) and the {0,1} F-point
+    mask (all ones when none is given).  Vectors and matrices are on
+    ``device``; the Chebyshev scalars stay Python floats."""
     def vec(a):
         return torch.as_tensor(a, dtype=dtype, device=device)
 
+    if kind.startswith(("air-", "cf-")):
+        base = _smoother_arrays(kind.split("-", 1)[1], A_host, dtype, device,
+                                cheby_args, weight)
+        if fmask is None:
+            fmask = np.ones(A_host.shape[0])
+        return base + (vec(fmask),)
     if kind == "chebyshev":
         from ..chebyshev import cheby_coefficients
 
@@ -179,10 +193,9 @@ def _smoother_arrays(kind: str, A_host: sp.csr_matrix, dtype, device,
     if kind == "jacobi":
         diag = A_host.diagonal()
         return (vec(np.where(diag != 0, weight / diag, 1.0)),)
-    if kind == "l1-jacobi":
-        l1 = np.asarray(np.abs(A_host).sum(axis=1)).ravel()
-        return (vec(np.where(l1 != 0, weight / l1, 1.0)),)
-    raise _not_ported(f"smoother '{kind}'")
+    # l1-jacobi: D = Σ_j |a_ij|
+    l1 = np.asarray(np.abs(A_host).sum(axis=1)).ravel()
+    return (vec(np.where(l1 != 0, weight / l1, 1.0)),)
 
 
 def _fsai_smoother(A_l: sp.csr_matrix, fs, dtype, device) -> Tuple:
@@ -219,45 +232,77 @@ def _fsai_smoother(A_l: sp.csr_matrix, fs, dtype, device) -> Tuple:
     return (st.G, st.GT, omega)
 
 
-def _check_ported(amg_args) -> Tuple[str, str]:
-    """(down kind, up kind); raises for options outside the port."""
+def _smoother_kinds(amg_args) -> Tuple[str, str]:
+    """(down kind, up kind) from the relaxation section, as the JAX package
+    picks them: ``relaxation.type`` sets both directions; ``points: air``
+    turns every kind but Chebyshev into the F/C-masked AIR schedule
+    (ref: amg.c:870-877,986-1015); ``order: 1`` turns (ℓ1-)Jacobi into C/F
+    relaxation (hypre BoomerAMGSetRelaxOrder, ref amg.c:895)."""
     rlx = amg_args.relaxation
     if int(rlx.type) >= 0:
         down_kind = up_kind = _RELAX_KIND.get(int(rlx.type), "l1-jacobi")
     else:
         down_kind = _RELAX_KIND.get(int(rlx.down_type), "l1-jacobi")
         up_kind = _RELAX_KIND.get(int(rlx.up_type), "l1-jacobi")
-    for kind in (down_kind, up_kind):
-        if kind not in PORTED_SMOOTHERS:
-            raise _not_ported(f"smoother '{kind}'")
-    # Chebyshev keeps its own schedule under both options; every other
-    # kind switches to the F/C-masked AIR schedule, and (ℓ1-)Jacobi to C/F
-    # relaxation (hybrid GS keeps its own order)
-    kinds = {down_kind, up_kind}
-    if int(rlx.points) == 1 and kinds - {"chebyshev"}:
-        raise _not_ported("relaxation.points=air (F/C schedule)")
-    if int(rlx.order) == 1 and kinds & {"jacobi", "l1-jacobi"}:
-        raise _not_ported("relaxation.order=1 (C/F relaxation)")
-    if int(amg_args.aggressive.num_levels) > 0:
-        raise _not_ported("aggressive coarsening")
-    if int(amg_args.interpolation.restriction_type) != 0:
-        raise _not_ported("AIR restriction")
+    if int(rlx.points) == 1:
+        def air(kind):
+            if kind == "chebyshev":
+                return kind
+            return "air-" + ("jacobi" if kind == "jacobi" else "l1-jacobi")
+        return air(down_kind), air(up_kind)
+    if int(rlx.order) == 1:
+        def cf(kind):
+            return "cf-" + kind if kind in ("jacobi", "l1-jacobi") else kind
+        return cf(down_kind), cf(up_kind)
     return down_kind, up_kind
+
+
+def _aggressive_interpolation(A_l, S, cf1, itp, lvl, ctype, theta, sabs,
+                              func_l, trunc_factor, max_nnz_row):
+    """Two-stage (aggressive) coarsening of one level: PMIS → P₁ → Galerkin
+    A₁ → PMIS (seeded 1000 + lvl) → P₂; returns (P₁·P₂, the combined C/F
+    marks).  The coarse grid of the fused level is the distance-2 C-set
+    (ref: amg.c:330-347, hypre's 2-stage aggressive prolongations)."""
+    p_type = int(itp.prolongation_type)
+    P1 = build_interpolation(A_l, S, cf1, prolongation_type=p_type,
+                             trunc_factor=trunc_factor,
+                             max_nnz_row=max_nnz_row)
+    C1 = np.flatnonzero(cf1 > 0)
+    A1 = _galerkin_rap(A_l, P1)
+    func1 = func_l[C1] if func_l is not None else None
+    S1 = strength_graph(A1, theta=theta, sabs=sabs, dof_func=func1)
+    if S1.nnz == 0:
+        return P1, cf1
+    cf2 = coarsen(S1, ctype=ctype, seed=1000 + lvl)
+    if (cf2 > 0).sum() in (0, len(C1)):
+        return P1, cf1
+    P2 = build_interpolation(A1, S1, cf2, prolongation_type=p_type,
+                             trunc_factor=trunc_factor,
+                             max_nnz_row=max_nnz_row)
+    P = sp.csr_matrix(P1 @ P2)
+    P.sort_indices()
+    cf = cf1.copy()
+    cf[C1[cf2 < 0]] = -1
+    return P, cf
 
 
 def setup_hierarchy(A_host: sp.csr_matrix, amg_args,
                     dtype: torch.dtype = torch.float64,
                     device: torch.device = torch.device("cpu"),
                     fine_matrix: Optional[EllMatrix] = None,
-                    dof_func: Optional[np.ndarray] = None) -> AMGState:
+                    dof_func: Optional[np.ndarray] = None,
+                    interp_vectors: Optional[np.ndarray] = None) -> AMGState:
     """Build the multigrid hierarchy from the AMG config Args (schema:
     config/sections.py AMG_SCHEMA; ref arg structs amg.h:23-123) and upload
     it to ``device``.  ``fine_matrix`` is reused as the finest level's A
     when it has the right dtype and device.  ``dof_func`` (per-row dof
     labels) restricts strong connections to one function when
     ``coarsening.num_functions`` > 1, and follows the C points down the
-    levels."""
-    kind, up_kind = _check_ported(amg_args)
+    levels.  ``interp_vectors`` (near-null-space modes, (n, k) or (k, n))
+    are folded into every level's P when ``interp_vec_variant`` > 0 (ref:
+    amg.c:602 AMGSetRBMs); their coarse copies are the C-point
+    injection."""
+    kind, up_kind = _smoother_kinds(amg_args)
     device = torch.device(device)
     if fine_matrix is not None and (fine_matrix.dtype != dtype
                                     or fine_matrix.device != device):
@@ -282,14 +327,33 @@ def setup_hierarchy(A_host: sp.csr_matrix, amg_args,
                    if int(amg_args.smoother.type) in FSAI_SMOOTHER_TYPES
                    else 0)
     fsai_sweeps = max(1, int(amg_args.smoother.num_sweeps))
+    # AIR: non-Galerkin restriction (ref: amg.c:870-877)
+    restriction_type = int(itp.restriction_type)
+    restrict_th = float(itp.restrict_strong_th)
+    restrict_filter = float(itp.restrict_filter_th)
+    masked = kind.startswith(("air-", "cf-")) \
+        or up_kind.startswith(("air-", "cf-"))
+    agg_levels = int(amg_args.aggressive.num_levels)
+    agg_trunc = float(amg_args.aggressive.trunc_factor)
+    agg_pmax = int(amg_args.aggressive.max_nnz_row)
+    # interpolation vectors (RBMs); GM2 pattern growth pins QMax = 4 for
+    # variant 2 (ref: amg.c:1025 SetInterpVecQMax(4))
+    V_l = None
+    qmax = int(getattr(amg_args, "interp_vec_qmax", 0))
+    if interp_vectors is not None and int(amg_args.interp_vec_variant) > 0:
+        V_l = np.atleast_2d(np.asarray(interp_vectors, dtype=np.float64))
+        if V_l.shape[0] != A_host.shape[0]:
+            V_l = V_l.T
+        if qmax <= 0 and int(amg_args.interp_vec_variant) == 2:
+            qmax = 4
 
-    def smoothers(A_l):
+    def smoothers(A_l, fmask=None):
         sm = _smoother_arrays(kind, A_l, dtype, device, rlx.chebyshev,
-                              weight)
+                              weight, fmask)
         if up_kind == kind:
             return sm, None, None
         return sm, up_kind, _smoother_arrays(up_kind, A_l, dtype, device,
-                                             rlx.chebyshev, weight)
+                                             rlx.chebyshev, weight, fmask)
 
     levels: List[AMGLevel] = []
     A_l = sp.csr_matrix(A_host)
@@ -307,13 +371,33 @@ def setup_hierarchy(A_host: sp.csr_matrix, amg_args,
         nC = int((cf > 0).sum())
         if nC == 0 or nC >= n:
             break
-        P = build_interpolation(
-            A_l, S, cf,
-            prolongation_type=int(itp.prolongation_type),
-            trunc_factor=float(itp.trunc_factor),
-            max_nnz_row=int(itp.max_nnz_row))
-        R = sp.csr_matrix(P.T)
-        A_c = _galerkin_rap(A_l, P)
+        if lvl < agg_levels and restriction_type == 0 and nC > max_coarse:
+            # aggressive coarsening: a second PMIS pass fused into this
+            # level (ref: amg.c:330-347)
+            P, cf = _aggressive_interpolation(
+                A_l, S, cf, itp, lvl + seed_base, ctype=int(csn.type),
+                theta=theta, sabs=sabs, func_l=func_l,
+                trunc_factor=(agg_trunc if agg_trunc > 0
+                              else float(itp.trunc_factor)),
+                max_nnz_row=(agg_pmax if agg_pmax > 0
+                             else int(itp.max_nnz_row)))
+        else:
+            P = build_interpolation(
+                A_l, S, cf,
+                prolongation_type=int(itp.prolongation_type),
+                trunc_factor=float(itp.trunc_factor),
+                max_nnz_row=int(itp.max_nnz_row))
+        if V_l is not None:
+            from .rbm import augment_interpolation
+
+            P, V_c = augment_interpolation(P, cf, V_l, A=A_l, qmax=qmax)
+        R_air = build_restriction(A_l, cf, restriction_type, restrict_th,
+                                  restrict_filter)
+        R = R_air if R_air is not None else sp.csr_matrix(P.T)
+        A_c = _galerkin_rap(A_l, P, R_air)
+        # the F-point mask of this level as padded: the previous level's
+        # identity pad rows are isolated points, hence F
+        fmask = (cf < 0).astype(np.float64) if masked else None
         nC_real = A_c.shape[0]
         npad_c = _bucket_rows(nC_real)
         if npad_c > nC_real:
@@ -326,7 +410,7 @@ def setup_hierarchy(A_host: sp.csr_matrix, amg_args,
             lvl_kind, lvl_pre, lvl_post = "fsai", fsai_sweeps, fsai_sweeps
             up_k = up_sm = None
         else:
-            sm, up_k, up_sm = smoothers(A_l)
+            sm, up_k, up_sm = smoothers(A_l, fmask)
             lvl_kind, lvl_pre, lvl_post = kind, pre, post
         levels.append(AMGLevel(
             A=E,
@@ -342,6 +426,11 @@ def setup_hierarchy(A_host: sp.csr_matrix, amg_args,
             if npad_c > nC_real:
                 func_l = np.concatenate(
                     [func_l, np.zeros(npad_c - nC_real, func_l.dtype)])
+        if V_l is not None:
+            V_l = V_c
+            if npad_c > nC_real:
+                V_l = np.vstack([V_l, np.zeros((npad_c - nC_real,
+                                                V_l.shape[1]))])
         A_l = A_c
         n_real = nC_real
         if nC_real <= max_coarse:

@@ -14,6 +14,19 @@ import torch
 from ..core.errors import ErrorCode, HypredrvError
 
 
+def precon_matrix(system):
+    """(host matrix a preconditioner is built from, device matrix its
+    finest level may reuse or None): the separate preconditioning matrix
+    (precmat) when the system has one, else A and the solver's own device
+    matrix."""
+    M_host = getattr(system, "M_host", None)
+    if M_host is not None:
+        return M_host, None
+    A_host = system.A_host if system.A_host is not None \
+        else system.A.to_csr()
+    return A_host, getattr(system, "A", None)
+
+
 class Preconditioner:
     """Base preconditioner; the identity until a subclass overrides it."""
 

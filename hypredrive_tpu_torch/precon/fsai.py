@@ -25,7 +25,7 @@ import scipy.sparse as sp
 import torch
 
 from ..ops.device_matrix import EllMatrix
-from .base import Preconditioner
+from .base import Preconditioner, precon_matrix
 
 
 @dataclass
@@ -293,8 +293,7 @@ class FSAIPrecon(Preconditioner):
     method = "fsai"
 
     def setup(self, system):
-        A_host = system.A_host if system.A_host is not None \
-            else system.A.to_csr()
+        A_host, _ = precon_matrix(system)
         if int(self.args.get("algo_type", 1)) in (1, 3):
             # adaptive pattern growth (hypre bj-afsai, the default)
             self.state = build_fsai_adaptive(

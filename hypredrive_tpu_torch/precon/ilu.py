@@ -33,7 +33,7 @@ from torch.profiler import record_function
 
 from ..core.errors import ErrorCode, HypredrvError
 from ..ops.device_matrix import EllMatrix
-from .base import Preconditioner
+from .base import Preconditioner, precon_matrix
 
 # ---------------------------------------------------------------------------
 # ILU(0) factorization (host)
@@ -433,8 +433,7 @@ class ILUPrecon(Preconditioner):
     method = "ilu"
 
     def setup(self, system):
-        A_host = system.A_host if system.A_host is not None \
-            else system.A.to_csr()
+        A_host, _ = precon_matrix(system)
         self.state = build_ilu_state(A_host, self.args, system.dtype,
                                      system.device)
         self.is_setup = True

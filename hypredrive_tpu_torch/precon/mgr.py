@@ -33,7 +33,7 @@ from torch.profiler import record_function
 from ..core.errors import ErrorCode, HypredrvError
 from ..core.logging import log
 from ..ops.device_matrix import EllMatrix
-from .base import Preconditioner
+from .base import Preconditioner, precon_matrix
 from .components import apply_component, build_component
 
 
@@ -487,14 +487,13 @@ class MGRPrecon(Preconditioner):
         self._setup_count = 0
 
     def setup(self, system):
-        A_host = system.A_host if system.A_host is not None \
-            else system.A.to_csr()
+        A_host, fine = precon_matrix(system)
         self.state = setup_mgr(
             A_host, self.args, system.dofmap, dtype=system.dtype,
             dof_labels=system.dof_labels,
             component_cache=self._component_cache,
             setup_index=self._setup_count, device=system.device,
-            fine_matrix=system.A)
+            fine_matrix=fine)
         self._setup_count += 1
         log(2, mgr_summary(self.state))
         self.is_setup = True

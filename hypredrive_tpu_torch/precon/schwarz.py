@@ -22,7 +22,7 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
-from .base import Preconditioner
+from .base import Preconditioner, precon_matrix
 
 
 @dataclass
@@ -134,8 +134,7 @@ class SchwarzPrecon(Preconditioner):
     method = "schwarz"
 
     def setup(self, system):
-        A_host = system.A_host if system.A_host is not None \
-            else system.A.to_csr()
+        A_host, _ = precon_matrix(system)
         variant = int(self.args.get("variant", 10))
         # ras-* variants: 10, 20, 30, 40; as-*: 11, 21, 31, 41; classical
         # mp/ad (0-4) treated as additive

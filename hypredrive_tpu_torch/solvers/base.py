@@ -31,6 +31,13 @@ class SolveResult:
     converged: bool = True
     res_history: Optional[np.ndarray] = None
     solve_time: float = 0.0
+    # per-iteration per-dof-block error norms ‖x_k − xref‖ — filled by GMRES
+    # when a reference solution is set (ref: hypredrv_GMRESSetRefSolution,
+    # src/internal/gmres.c:80-103; tags from the dofmap,
+    # src/HYPREDRV.c:693-726)
+    error_histories: Optional[np.ndarray] = None
+    # ‖x − xref‖₂ after the post-solve tail, when xref is set
+    error_norm: Optional[float] = None
 
 
 def _sync(t: torch.Tensor) -> None:
@@ -69,7 +76,8 @@ class Solver:
             stats.annotate_begin("solve")
         _sync(b)
         t0 = time.perf_counter()
-        x, iters, final_norm, converged, history = self.solve_core(A, b, x0)
+        x, iters, final_norm, converged, history, error_histories = \
+            self.solve_core(A, b, x0)
         _sync(x)
         solve_time = time.perf_counter() - t0
         if stats is not None:
@@ -89,6 +97,7 @@ class Solver:
             converged=bool(converged),
             res_history=history,
             solve_time=solve_time,
+            error_histories=error_histories,
         )
         system.x = x
         if stats is not None:
@@ -97,6 +106,8 @@ class Solver:
         return result
 
     def solve_core(self, A, b, x0):
+        """(x, iters, final norm, converged, residual history, per-block
+        error history or None)."""
         raise NotImplementedError
 
 

@@ -61,6 +61,6 @@ class BiCGSTABSolver(Solver):
 
     def solve_core(self, A, b, x0):
         a = self.args
-        return bicgstab_core(A.matvec, self.precon_apply, b, x0,
-                             float(a.relative_tol), float(a.absolute_tol),
-                             int(a.max_iter))
+        return (*bicgstab_core(A.matvec, self.precon_apply, b, x0,
+                               float(a.relative_tol), float(a.absolute_tol),
+                               int(a.max_iter)), None)

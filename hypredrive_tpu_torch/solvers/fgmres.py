@@ -72,6 +72,6 @@ class FGMRESSolver(Solver):
 
     def solve_core(self, A, b, x0):
         a = self.args
-        return fgmres_core(A.matvec, self.precon_apply, b, x0,
-                           float(a.relative_tol), float(a.absolute_tol),
-                           int(a.max_iter), int(a.krylov_dim))
+        return (*fgmres_core(A.matvec, self.precon_apply, b, x0,
+                             float(a.relative_tol), float(a.absolute_tol),
+                             int(a.max_iter), int(a.krylov_dim)), None)

@@ -13,9 +13,12 @@ h_{j+1,j}) comes to the host in one read per inner iteration; the Givens
 rotations and the back-substitution run there in the solve's dtype, so a
 float32 solve rotates in float32 as the JAX package does.
 
-The JAX package's per-block error histories against a reference solution
-(``xref`` + dofmap tags) are not ported: the ``xref`` input itself raises
-a typed "not yet ported" error in ``linsys/system.py``.
+With a reference solution set (``xref``), every inner iteration also
+rebuilds its iterate (the host back-substitution and one combination of
+the basis on the device) and records the error norm ‖x_k − xref‖ of each
+dof block, the blocks being the dofmap's labels (one block without a
+dofmap): the JAX package's tagged histories (ref:
+hypredrv_GMRESSetRefSolution, src/internal/gmres.c:80-103).
 """
 
 from __future__ import annotations
@@ -100,11 +103,23 @@ def combine(y, basis, j):
     return torch.matmul(yt, basis[:j])
 
 
+def block_errors(x, xref, tags, num_tags):
+    """‖x − xref‖ per tag on the host: a segment sum of squares on the
+    device, read back at once."""
+    e = x - xref
+    ss = torch.zeros(num_tags, dtype=x.dtype, device=x.device)
+    ss.index_add_(0, tags, e * e)
+    return torch.sqrt(ss).cpu().numpy()
+
+
 def gmres_core(matvec, precon, b, x0, rtol: float, atol: float,
                max_iter: int = 300, m: int = 30,
-               skip_real_res_check: bool = False):
+               skip_real_res_check: bool = False, xref=None, tags=None,
+               num_tags: int = 0):
     """(x, iters, final norm, converged, history of max_iter+1 norms, NaN
-    past the last iteration)."""
+    past the last iteration, per-block error history): the last is the
+    (max_iter+1, num_tags) error history against ``xref`` (int64 ``tags``
+    per row) with ``num_tags`` > 0, else None."""
     hdt = host_dtype(b)
     n = b.shape[0]
     # hypre convention: the convergence contract is on the TRUE residual;
@@ -115,6 +130,10 @@ def gmres_core(matvec, precon, b, x0, rtol: float, atol: float,
                                             hdt)
     history = np.full(max_iter + 1, np.nan)
     history[0] = r0_norm
+    ehist = None
+    if num_tags > 0:
+        ehist = np.full((max_iter + 1, num_tags), np.nan)
+        ehist[0] = block_errors(x0, xref, tags, num_tags)
     V = torch.empty((m + 1, n), dtype=b.dtype, device=b.device)
 
     def cycle(x, total, r_true_norm):
@@ -138,6 +157,11 @@ def gmres_core(matvec, precon, b, x0, rtol: float, atol: float,
             norm = givens_step(H, cs, sn, g, j)
             if total + j + 1 <= max_iter:
                 history[total + j + 1] = norm
+                if ehist is not None:
+                    # the current iterate from the updated Hessenberg
+                    y = back_substitute(H, g, j + 1)
+                    ehist[total + j + 1] = block_errors(
+                        x + combine(y, V, j + 1), xref, tags, num_tags)
             j += 1
             done = norm <= inner_threshold
         y = back_substitute(H, g, j)
@@ -158,7 +182,7 @@ def gmres_core(matvec, precon, b, x0, rtol: float, atol: float,
             done = norm <= threshold
         # no progress this cycle → breakdown, stop
         done = bool(done) or j == 0
-    return x, total, float(norm), bool(done), history
+    return x, total, float(norm), bool(done), history, ehist
 
 
 class GMRESSolver(Solver):
@@ -166,7 +190,16 @@ class GMRESSolver(Solver):
 
     def solve_core(self, A, b, x0):
         a = self.args
+        tagged = {}
+        system = getattr(self, "_system", None)
+        if system is not None and system.xref is not None:
+            # tagged reference-solution errors, one tag without a dofmap
+            labels = (np.asarray(system.dofmap) if system.dofmap is not None
+                      else np.zeros(b.shape[0], np.int64))
+            tagged = dict(xref=system.xref.to(b.dtype), num_tags=int(
+                labels.max()) + 1, tags=torch.as_tensor(
+                    labels, dtype=torch.int64, device=b.device))
         return gmres_core(A.matvec, self.precon_apply, b, x0,
                           float(a.relative_tol), float(a.absolute_tol),
                           int(a.max_iter), int(a.krylov_dim),
-                          bool(a.get("skip_real_res_check", False)))
+                          bool(a.get("skip_real_res_check", False)), **tagged)

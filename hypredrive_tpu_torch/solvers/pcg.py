@@ -70,7 +70,7 @@ class PCGSolver(Solver):
 
     def solve_core(self, A, b, x0):
         a = self.args
-        return pcg_core(A.matvec, self.precon_apply, b, x0,
-                        float(a.relative_tol), float(a.absolute_tol),
-                        int(a.max_iter), bool(a.two_norm),
-                        int(a.recompute_res))
+        return (*pcg_core(A.matvec, self.precon_apply, b, x0,
+                          float(a.relative_tol), float(a.absolute_tol),
+                          int(a.max_iter), bool(a.two_norm),
+                          int(a.recompute_res)), None)

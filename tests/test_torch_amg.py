@@ -28,7 +28,6 @@ from hypredrive_tpu.precon.amg.hierarchy import \
     setup_hierarchy as jax_setup
 from hypredrive_tpu_torch import convert
 from hypredrive_tpu_torch.config.sections import AMG_SCHEMA
-from hypredrive_tpu_torch.core.errors import ErrorCode, HypredrvError
 from hypredrive_tpu_torch.io import native
 from hypredrive_tpu_torch.precon.amg import coarsen, interp, strength
 from hypredrive_tpu_torch.precon.amg.cycle import amg_apply
@@ -147,18 +146,3 @@ def test_cycle_matches(matrix, variant):
                          dtype=torch.float64)
     z_t = amg_apply(ts, torch.from_numpy(r)).numpy()
     assert np.abs(z_t - z_j).max() <= 1e-12 * scale
-
-
-@pytest.mark.parametrize("overrides,what", [
-    ({"relaxation": {"type": 3, "points": 1}}, "F/C schedule"),
-    ({"relaxation": {"down_type": 18, "up_type": 18, "order": 1}},
-     "C/F relaxation"),
-    ({"aggressive": {"num_levels": 1}}, "aggressive coarsening"),
-    ({"interpolation": {"restriction_type": 1}}, "AIR restriction"),
-    ({"relaxation": {"type": 0, "order": 1}}, "C/F relaxation"),
-])
-def test_unported_options_raise(overrides, what):
-    with pytest.raises(HypredrvError, match="not yet ported") as exc:
-        setup_hierarchy(laplacian_3d_7pt(8), _args(AMG_SCHEMA, overrides))
-    assert exc.value.code == ErrorCode.NOT_IMPLEMENTED
-    assert what in str(exc.value)

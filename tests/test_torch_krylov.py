@@ -78,7 +78,7 @@ def _torch_run(core, A, b, d_inv, precon, statics):
     pc = (lambda r: dt * r) if precon == "jacobi" else (lambda r: r)
     bt = torch.tensor(b)
     x, iters, _, done, hist = core(E.matvec, pc, bt, torch.zeros_like(bt),
-                                   SOLVE_RTOL, 0.0, *statics)
+                                   SOLVE_RTOL, 0.0, *statics)[:5]
     return x.numpy(), iters, done, hist
 
 

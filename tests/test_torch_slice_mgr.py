@@ -73,21 +73,16 @@ def test_ex1_jacobi_cli_matches_golden():
     assert e.iters == 21 and e.converged and e.rel_res_norm <= 1e-6
 
 
-# configs outside the port so far; ex4, ex7 and ex7-mgr-frelax-reuse run
-# since ILU and reuse were ported (tests/test_torch_slice_seq.py)
+# configs outside the port so far (AMS)
 LAPLACE_FILES = ("linear_system:\n"
                  "  matrix_filename: data/ps3d10pt7/np1/IJ.out.A\n"
                  "  rhs_filename: data/ps3d10pt7/np1/IJ.out.b\n")
 UNPORTED = {
-    "sequence.yml": ("linear_system:\n  sequence_filename: seq.lsseq\n"
-                     "solver: gmres\npreconditioner: mgr\n"),
     "ams.yml": LAPLACE_FILES + "solver: pcg\npreconditioner: ams\n",
 }
 
 
-@pytest.mark.parametrize("name,missing", [
-    ("ex6.yml", "eigspec"), ("ex9-print-system.yml", "print_system"),
-    ("sequence.yml", "sequence_filename"), ("ams.yml", "'ams'")])
+@pytest.mark.parametrize("name,missing", [("ams.yml", "'ams'")])
 def test_unported_examples_raise_typed(name, missing, tmp_path):
     path = _example(name)
     if name in UNPORTED:
