@@ -79,7 +79,18 @@ Phases (any failure exits non-zero and prints no result line):
      poisson preset, five solves on one driver);
    - capi: the C API shim built with g++, interfaces/c/example_laplacian.c
      compiled with gcc and run (PASSED and the bad-config line), then the
-     example's config on a 32³ Laplacian through the C verbs by ctypes.
+     example's config on a 32³ Laplacian through the C verbs by ctypes;
+   - the distributed layer, each path on one mesh of 8 row shards on
+     cuda:0 (every shard's matvec launching the DIA and CSR kernels, the
+     halo exchange on the device), each count and residual history the
+     JAX package's 8-device mesh run's (``data/golden/jax_counts.json``):
+     dist_dryrun8 (``__graft_entry__.dryrun_multichip(8)``'s three stacks:
+     PCG + AMG 6, GMRES + MGR 5, BiCGSTAB + bj-ILU(0) 12), dist_lap128 (a
+     128³ Laplacian, the distributed AMG setup from per-shard parts, PCG,
+     also ±1 of the one-device count), dist_mgr64 (the nx = 64
+     multiphysics system, GMRES(30) + the mesh MGR with masked AMG and
+     Jacobi F-relaxations, then BiCGSTAB + block-Jacobi ILU(0) to 1e-2) and
+     dist_ams32 (maxwell_edge_system(32), PCG + AMS on the mesh).
 3. Kernels against their plain torch versions on the card, at the shapes
    of the 128³ solve (on lap128's own hierarchy): the fine-grid DIA
    operator, and the CSR remainders of P, R and the first coarse A;
@@ -99,8 +110,9 @@ Phases (any failure exits non-zero and prints no result line):
    coarsest operator), float64 (rel 1e-12); at seq_64's shapes (the
    level-1 ILU L and U factors, the first coarse operator of the nested
    F-relaxation AMG); at the elasticity fine operator and convdif_air's
-   level-0 AIR restriction; and at ams_maxwell64's G, Gᵀ, Π, Πᵀ and edge
-   matrix.
+   level-0 AIR restriction; at ams_maxwell64's G, Gᵀ, Π, Πᵀ and edge
+   matrix; and at shard 1 of dist_lap128's A0 (its DIA part and the CSR
+   remainder holding its halo columns).
 
 The JAX package's numbers pinned below, and those in
 ``data/golden/jax_counts.json``, come from ``scripts/jax_goldens.py`` run on
@@ -849,16 +861,21 @@ def profile_solve(drv):
     """One more solve on the set-up hierarchy under torch.profiler: wall
     time, device busy time (sum of kernel times) and the top kernels.
     Informational only: a profiler that records nothing fails no phase."""
+    drv.reset_initial_guess()
+    return profile_run(drv.linear_solver_apply)
+
+
+def profile_run(run):
+    """``run()`` under torch.profiler: see profile_solve."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    drv.reset_initial_guess()
     torch.cuda.synchronize()
     # device activity only: recording every host op too costs seconds to
     # read back on the long solves and slows the solve it measures
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        drv.linear_solver_apply()
+        run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
 
@@ -2128,6 +2145,293 @@ def phase_aux_kernels(report):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# the distributed layer: 8 row shards on cuda:0 (hypredrive_tpu_torch.parallel)
+# ---------------------------------------------------------------------------
+
+N_SHARDS = 8
+DIST_HISTORY_TOL = 1e-6
+# the mesh MGR of dist_mgr64 (scripts/jax_goldens.py DIST_MGR64): inside the
+# distributed subset, with AMG and Jacobi F-relaxations and a coarsest AMG
+DIST_MGR64 = {
+    "level": {0: {"f_dofs": [2], "f_relaxation": {"amg": {"max_iter": 1}}},
+              1: {"f_dofs": [1], "f_relaxation": "jacobi"}},
+    "coarsest_level": "amg"}
+
+
+def history_dev(hist, ref):
+    k = min(len(hist), len(ref))
+    return max(abs(a / c - 1) for a, c in zip(hist[:k], ref[:k]))
+
+
+def timed(fn):
+    """(fn(), seconds) on the host clock, ending in a synchronise."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def mesh_solve(core, D, pc, b, rtol, max_iter):
+    """A Krylov core of the port on the mesh from x0 = 0 (GMRES(30); PCG
+    on the two-norm)."""
+    import torch
+    from hypredrive_tpu_torch.solvers.gmres import gmres_core
+    from hypredrive_tpu_torch.solvers.pcg import pcg_core
+
+    extra = {gmres_core: (30, False), pcg_core: (True, 0)}.get(core, ())
+    return core(D.matvec, pc, b, torch.zeros_like(b), rtol, 0.0, max_iter,
+                *extra)
+
+
+def check_mesh_solve(key, A, b_host, out, ref, bound):
+    """Count equal to the JAX package's mesh count, history within
+    DIST_HISTORY_TOL of its, finite x and host relative residual ≤
+    bound; the numbers for the report."""
+    import numpy as np
+
+    x = out[0][:A.shape[0]].cpu().numpy()
+    iters = int(out[1])
+    hist = [float(h) for h in out[4][:iters + 1]]
+    rel = float(np.linalg.norm(b_host - A @ x) / np.linalg.norm(b_host))
+    dev = history_dev(hist, ref["history"])
+    check(iters == ref["iters"], f"{key}: {iters} iterations, JAX package "
+                                 f"{ref['iters']}")
+    check(dev <= DIST_HISTORY_TOL, f"{key}: history deviates from the JAX "
+                                   f"package's by {dev:.3e}")
+    check(bool(out[3]) and rel <= bound and np.all(np.isfinite(x)),
+          f"{key}: host rel res {rel:.3e} > {bound}")
+    return {"iters": iters, "host_rel_res": rel, "history": hist,
+            "history_rel_dev_vs_jax": dev}
+
+
+def phase_dist_dryrun8(report):
+    """__graft_entry__.dryrun_multichip(8)'s three stacks on 8 shards of
+    cuda:0: PCG + AMG (distributed setup, 8³), GMRES + the mesh MGR and
+    BiCGSTAB + block-Jacobi ILU(0); the JAX package's 6, 5 and 12."""
+    from hypredrive_tpu_torch.parallel import make_mesh
+    from hypredrive_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    ref = {s["stack"]: s for s in jax_counts("dist_dryrun8")["stacks"]}
+    mesh = make_mesh(N_SHARDS)
+    stacks, wall = timed(lambda: dryrun_multichip(mesh))
+    report["dist_dryrun8"] = {"stacks": stacks, "wall_s": wall}
+    print(f"dist_dryrun8 ({N_SHARDS} shards on {mesh.device}, {wall:.3f} s):"
+          + "".join(f" {s['stack']} {s['iters']} iterations (JAX package "
+                    f"{ref[s['stack']]['iters']}), rel {s['rel']:.3e};"
+                    for s in stacks))
+    bound = {"pcg_amg": 1e-6, "gmres_mgr": 1e-5, "bicgstab_bj_ilu": 1e-5}
+    for s in stacks:
+        r = ref[s["stack"]]
+        dev = history_dev(s["history"], r["history"])
+        check(s["iters"] == r["iters"] and s["converged"]
+              and s["rel"] < bound[s["stack"]] and dev <= DIST_HISTORY_TOL,
+              f"dist_dryrun8 {s['stack']}: {s['iters']} iterations (JAX "
+              f"{r['iters']}), rel {s['rel']:.3e}, history dev {dev:.3e}")
+
+
+def phase_dist_lap128(report):
+    """A 128³ Laplacian (2,097,152 rows, 262,144 a shard) on 8 shards of
+    cuda:0, f64: the distributed AMG setup from split_rows parts, PCG to
+    1e-8 (b = ones): the JAX package's mesh count and history, ±1 of the
+    one-device count; setup, first, warm and profiled solve."""
+    import numpy as np
+    import torch
+    from hypredrive_tpu_torch.config.sections import AMG_SCHEMA
+    from hypredrive_tpu_torch.ops.csr import laplacian_3d_7pt
+    from hypredrive_tpu_torch.parallel import make_mesh, pad_vector
+    from hypredrive_tpu_torch.parallel.dist_setup import split_rows
+    from hypredrive_tpu_torch.precon.amg.cycle import amg_apply
+    from hypredrive_tpu_torch.precon.amg.hierarchy import setup_hierarchy
+    from hypredrive_tpu_torch.solvers.pcg import pcg_core
+
+    ref = jax_counts("dist_lap128")
+    mesh = make_mesh(N_SHARDS)
+    A = laplacian_3d_7pt(128)
+    parts = split_rows(A, N_SHARDS)
+    state, setup_s = timed(lambda: setup_hierarchy(
+        parts, AMG_SCHEMA.defaults(), dtype=torch.float64, mesh=mesh))
+    D = state.levels[0].A
+    b = pad_vector(np.ones(A.shape[0]), D.shape[0], mesh)
+
+    def solve():
+        return mesh_solve(pcg_core, D, lambda r: amg_apply(state, r), b,
+                          1e-8, 100)
+
+    out, first_s = timed(solve)
+    _, warm_s = timed(solve)
+    rows = [lv.A.shape[0] for lv in state.levels]
+    r = report["dist_lap128"] = {
+        "rows": A.shape[0], "nnz": int(A.nnz), "level_rows": rows,
+        "dia_offsets": list(D.dia_offsets), "halo_offsets": list(D.offsets),
+        "ext_size": D.ext_size, "setup_s": setup_s, "solve_s": first_s,
+        "solve_warm_s": warm_s}
+    r.update(check_mesh_solve("dist_lap128", A, np.ones(A.shape[0]), out,
+                              ref, 1e-8))
+    r["profile"] = profile_run(solve)
+    print(f"dist_lap128: {A.shape[0]} rows on {N_SHARDS} shards, levels "
+          f"{rows}, DIA offsets {D.dia_offsets}, halo distances {D.offsets}; "
+          f"setup {setup_s:.3f} s; {r['iters']} iterations (JAX package "
+          f"{ref['iters']}, one device {JAX_ITERS_128_F64}), host rel res "
+          f"{r['host_rel_res']:.3e}, first solve {first_s:.4f} s, warm "
+          f"{warm_s:.4f} s; history vs the JAX package: max rel dev "
+          f"{r['history_rel_dev_vs_jax']:.3e}")
+    check(rows == ref["level_rows"], f"dist_lap128: levels {rows}, JAX "
+                                     f"package {ref['level_rows']}")
+    check(list(D.dia_offsets) == ref["dia_offsets"]
+          and list(D.offsets) == ref["halo_offsets"],
+          f"dist_lap128: DIA offsets {D.dia_offsets} / halo {D.offsets}, "
+          f"JAX package {ref['dia_offsets']} / {ref['halo_offsets']}")
+    check(abs(r["iters"] - JAX_ITERS_128_F64) <= 1,
+          f"dist_lap128: {r['iters']} iterations, one device "
+          f"{JAX_ITERS_128_F64}±1")
+    KEEP["dist_lap128_A0"] = D
+
+
+def phase_dist_mgr64(report):
+    """The nx = 64 multiphysics system (786,432 rows) on 8 shards of
+    cuda:0: GMRES(30) + the mesh MGR (masked AMG and Jacobi F-relaxations,
+    coarsest distributed AMG) to 1e-6, then BiCGSTAB + block-Jacobi ILU(0)
+    to 1e-2 (it stalls near 3e-3 in both packages), b = ones: both the JAX
+    package's mesh counts and histories."""
+    import numpy as np
+    import torch
+    from hypredrive_tpu_torch.config.sections import MGR_SCHEMA
+    from hypredrive_tpu_torch.ops.csr import multiphysics_fv_system
+    from hypredrive_tpu_torch.parallel import make_mesh, pad_vector
+    from hypredrive_tpu_torch.parallel.dist_precon import (build_bj_ilu_dist,
+                                                           setup_mgr_dist)
+    from hypredrive_tpu_torch.parallel.dist_setup import split_rows
+    from hypredrive_tpu_torch.precon.ilu import tri_jacobi_apply
+    from hypredrive_tpu_torch.precon.mgr import mgr_apply
+    from hypredrive_tpu_torch.solvers.bicgstab import bicgstab_core
+    from hypredrive_tpu_torch.solvers.gmres import gmres_core
+
+    ref = jax_counts("dist_mgr64")
+    mesh = make_mesh(N_SHARDS)
+    A, dofmap = multiphysics_fv_system(64, 3, contrast=0.3, coupling=0.12,
+                                       convection=0.08)
+    check(A.shape[0] == ref["rows"] and A.nnz == ref["nnz"],
+          f"dist_mgr64: {A.shape[0]} rows / {A.nnz} nnz")
+    parts = split_rows(A, N_SHARDS)
+    args = MGR_SCHEMA.parse(DIST_MGR64, "mgr", [])
+    sm, mgr_setup_s = timed(lambda: setup_mgr_dist(
+        parts, args, dofmap, mesh, dtype=torch.float64))
+    D = sm.levels[0].A
+    b = pad_vector(np.ones(A.shape[0]), D.shape[0], mesh)
+    ones = np.ones(A.shape[0])
+
+    def solve_mgr():
+        return mesh_solve(gmres_core, D, lambda r: mgr_apply(sm, r), b,
+                          1e-6, 100)
+
+    out, first_s = timed(solve_mgr)
+    _, warm_s = timed(solve_mgr)
+    mgr = {"setup_s": mgr_setup_s, "solve_s": first_s,
+           "solve_warm_s": warm_s,
+           "level_rows": [lv.A.shape[0] for lv in sm.levels],
+           "f_kinds": [lv.f_kind for lv in sm.levels],
+           "coarsest_level_rows": [lv.A.shape[0]
+                                   for lv in sm.coarsest_state.levels]}
+    mgr.update(check_mesh_solve("dist_mgr64 GMRES + MGR", A, ones, out,
+                                ref["mgr"], 1e-6))
+    mgr["profile"] = profile_run(solve_mgr)
+    si, ilu_setup_s = timed(lambda: build_bj_ilu_dist(
+        parts, mesh, dtype=torch.float64))
+    out, ilu_s = timed(lambda: mesh_solve(
+        bicgstab_core, D, lambda r: tri_jacobi_apply(si, r), b, 1e-2, 200))
+    ilu = {"setup_s": ilu_setup_s, "solve_s": ilu_s}
+    ilu.update(check_mesh_solve("dist_mgr64 BiCGSTAB + bj-ILU", A, ones,
+                                out, ref["bj_ilu"], 1e-2))
+    report["dist_mgr64"] = {"rows": A.shape[0], "nnz": int(A.nnz),
+                            "mgr": mgr, "bj_ilu": ilu}
+    print(f"dist_mgr64: {A.shape[0]} rows on {N_SHARDS} shards; MGR levels "
+          f"{mgr['level_rows']} ({mgr['f_kinds']}), coarsest AMG levels "
+          f"{mgr['coarsest_level_rows']}, setup {mgr_setup_s:.3f} s; "
+          f"GMRES {mgr['iters']} iterations (JAX package "
+          f"{ref['mgr']['iters']}), rel {mgr['host_rel_res']:.3e}, first "
+          f"{first_s:.4f} s, warm {warm_s:.4f} s, history dev "
+          f"{mgr['history_rel_dev_vs_jax']:.3e}; bj-ILU(0) setup "
+          f"{ilu_setup_s:.3f} s, BiCGSTAB {ilu['iters']} iterations (JAX "
+          f"package {ref['bj_ilu']['iters']}), {ilu_s:.4f} s, history dev "
+          f"{ilu['history_rel_dev_vs_jax']:.3e}")
+    check(mgr["f_kinds"] == ref["mgr"]["f_kinds"]
+          and mgr["coarsest_level_rows"] == ref["mgr"]["coarsest_level_rows"],
+          f"dist_mgr64: F-relaxations {mgr['f_kinds']}, coarsest levels "
+          f"{mgr['coarsest_level_rows']}")
+
+
+def phase_dist_ams32(report):
+    """maxwell_edge_system(32, eps=0.05, dim=3) on 8 shards of cuda:0: PCG +
+    AMS (cycle type 1) with every operator row-sharded and both auxiliary
+    hierarchies from the distributed setup, to 1e-8, b = A·u(−1, 1) from
+    seed 11: the JAX package's mesh count and history."""
+    import numpy as np
+    import torch
+    from hypredrive_tpu_torch.config.sections import AMS_SCHEMA
+    from hypredrive_tpu_torch.ops.csr import maxwell_edge_system
+    from hypredrive_tpu_torch.parallel import make_mesh, pad_vector
+    from hypredrive_tpu_torch.precon.ams import _ams_apply, build_ams_state
+    from hypredrive_tpu_torch.solvers.pcg import pcg_core
+
+    ref = jax_counts("dist_ams32")
+    mesh = make_mesh(N_SHARDS)
+    A, G, coords = maxwell_edge_system(32, eps=0.05, dim=3)
+    check(A.shape[0] == ref["rows"] and A.nnz == ref["nnz"],
+          f"dist_ams32: {A.shape[0]} rows / {A.nnz} nnz")
+    args = AMS_SCHEMA.parse({"cycle_type": 1}, "ams", [])
+    st, setup_s = timed(lambda: build_ams_state(
+        A, G, coords, args, torch.float64, mesh=mesh))
+    bh = A @ np.random.default_rng(11).uniform(-1, 1, A.shape[0])
+    b = pad_vector(bh, st.A.shape[0], mesh)
+
+    def solve():
+        return mesh_solve(pcg_core, st.A, lambda r: _ams_apply(st, r), b,
+                          1e-8, 400)
+
+    out, first_s = timed(solve)
+    _, warm_s = timed(solve)
+    r = report["dist_ams32"] = {"rows": A.shape[0], "nnz": int(A.nnz),
+                                "setup_s": setup_s, "solve_s": first_s,
+                                "solve_warm_s": warm_s,
+                                "jax_history_spread": ref["history_spread"]}
+    check(ref["history_spread"] < DIST_HISTORY_TOL,
+          f"dist_ams32: the JAX package's own spread "
+          f"{ref['history_spread']:.3e}")
+    r.update(check_mesh_solve("dist_ams32", A, bh, out, ref, 1e-8))
+    r["profile"] = profile_run(solve)
+    print(f"dist_ams32: {A.shape[0]} edges on {N_SHARDS} shards; setup "
+          f"{setup_s:.3f} s; {r['iters']} iterations (JAX package "
+          f"{ref['iters']}), host rel res {r['host_rel_res']:.3e}, first "
+          f"{first_s:.4f} s, warm {warm_s:.4f} s; history dev "
+          f"{r['history_rel_dev_vs_jax']:.3e} (the JAX package's own spread "
+          f"{ref['history_spread']:.3e})")
+
+
+def phase_dist_kernels(report):
+    """Each kernel against its plain version at a shard of dist_lap128's A0
+    (float64): the DIA part, and the CSR remainder that holds the shard's
+    halo columns.  Shard 1: shard 0 (and the last shard) receive one halo
+    plane only, which lands on a diagonal of x_ext, so their remainder is
+    empty."""
+    import torch
+
+    D = KEEP.pop("dist_lap128_A0")
+    s = 1
+    E = D.shards[s]
+    check(E.dia_data is not None and E.data is not None,
+          f"dist_lap128 shard {s}: DIA part or CSR remainder missing")
+    checks = KernelChecks()
+    checks.matrix(f"dist A0 shard {s} {E.shape[0]}x{E.shape[1]}", E,
+                  torch.float64)
+    report["kernel_checks"].extend(checks.rows)
+    del D, E
+    torch.cuda.empty_cache()
+
+
 KERNELS = {
     "dia_spmv": ("hypredrive_tpu_torch/csrc/dia_spmv.cu",
                  "hypredrive_tpu/ops/pallas_dia.py:99 (K1); "
@@ -2172,7 +2476,11 @@ PATHS = (("ex1", phase_ex1, BOTH), ("lap64", phase_64, BOTH),
          ("ads_graddiv48", phase_ads48, BOTH),
          ("ams_cycles", phase_ams_cycles, BOTH),
          ("laplacian_driver", phase_laplacian_driver, BOTH),
-         ("capi", phase_capi, BOTH))
+         ("capi", phase_capi, BOTH),
+         ("dist_dryrun8", phase_dist_dryrun8, BOTH),
+         ("dist_lap128", phase_dist_lap128, BOTH),
+         ("dist_mgr64", phase_dist_mgr64, BOTH),
+         ("dist_ams32", phase_dist_ams32, BOTH))
 
 
 def main() -> int:
@@ -2233,7 +2541,9 @@ def main() -> int:
                               ("slice_kernels", "convdif_R0",
                                phase_slice_kernels),
                               ("aux_kernels", "ams64_state",
-                               phase_aux_kernels)):
+                               phase_aux_kernels),
+                              ("dist_kernels", "dist_lap128_A0",
+                               phase_dist_kernels)):
             if key in KEEP:
                 run(name, fn)
             else:

@@ -5,20 +5,22 @@ src/internal/runtime.c:101 hypredrv_RuntimeInitialize, :232
 DestroyAllLiveObjects): a once-only initialization plus a registry of
 live driver handles, so that ``finalize`` can sweep leaked objects.
 
-This package runs in one process; ``initialize(distributed=True)`` raises
-a typed ``NOT_IMPLEMENTED`` error until the distributed layer is ported.
+``initialize(distributed=True)`` calls
+``torch.distributed.init_process_group`` (the multi-process analogue of
+MPI_Init, as the JAX package calls ``jax.distributed.initialize``);
+``finalize`` destroys the group.
 """
 
 from __future__ import annotations
 
 import atexit
+import os
 import weakref
 from typing import Optional
 
-from .errors import ErrorCode, HypredrvError
-
 _state = {
     "initialized": False,
+    "distributed": False,
     "live": None,  # weak set of live driver objects
 }
 
@@ -27,17 +29,26 @@ def is_initialized() -> bool:
     return _state["initialized"]
 
 
-def initialize(distributed: Optional[bool] = None) -> None:
+def initialize(distributed: Optional[bool] = None, **dist_kwargs) -> None:
     """Initialize the runtime (ref: HYPREDRV_Initialize,
-    src/HYPREDRV.c:915).  The default initializes nothing distributed."""
-    if distributed:
-        raise HypredrvError(
-            "initialize(distributed=True) needs the distributed layer, which "
-            "is not yet ported to hypredrive_tpu_torch",
-            ErrorCode.NOT_IMPLEMENTED)
+    src/HYPREDRV.c:915).
+
+    ``distributed=True`` calls ``torch.distributed.init_process_group(
+    **dist_kwargs)``; the backend, address, world size and rank are the
+    caller's.  By default it does so only when torchrun's ``MASTER_ADDR``
+    and ``WORLD_SIZE`` are set (as the JAX package reads
+    ``JAX_COORDINATOR_ADDRESS``).  A second call is a no-op."""
     if _state["initialized"]:
         return
     _state["live"] = weakref.WeakSet()
+    if distributed is None:
+        distributed = bool(os.environ.get("MASTER_ADDR")
+                           and os.environ.get("WORLD_SIZE"))
+    if distributed:
+        import torch.distributed as dist
+
+        dist.init_process_group(**dist_kwargs)
+        _state["distributed"] = True
     _state["initialized"] = True
 
 
@@ -65,6 +76,12 @@ def finalize() -> None:
             except Exception:  # one failed destroy must not stop the sweep
                 pass
         live.clear()
+    if _state["distributed"]:
+        import torch.distributed as dist
+
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        _state["distributed"] = False
     _state["initialized"] = False
 
 

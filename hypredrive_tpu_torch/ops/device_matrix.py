@@ -129,13 +129,22 @@ class EllMatrix:
             A.sum_duplicates()
         if not A.has_sorted_indices:
             A.sort_indices()
-        offs, dia, r_rows, r_cols, r_vals = _select_diagonals(A, dia_offsets)
-        E = cls(shape=(n_rows, n_cols), nnz=int(A.nnz), dtype=dtype,
-                device=device, dia_offsets=offs)
+        return cls.from_split(A.shape, int(A.nnz),
+                              _select_diagonals(A, dia_offsets), dtype, device)
+
+    @classmethod
+    def from_split(cls, shape: Tuple[int, int], nnz: int, split,
+                   dtype: torch.dtype, device: torch.device) -> "EllMatrix":
+        """A DIA + CSR matrix, never dense, from ``_select_diagonals``'s
+        (offsets, dia, rows, cols, vals) of a canonical CSR."""
+        device = torch.device(device)
+        offs, dia, r_rows, r_cols, r_vals = split
+        E = cls(shape=tuple(shape), nnz=nnz, dtype=dtype, device=device,
+                dia_offsets=offs)
         if dia is not None:
             E.dia_data = torch.as_tensor(dia, dtype=dtype, device=device)
         if len(r_rows):
-            R = sp.csr_matrix((r_vals, (r_rows, r_cols)), shape=A.shape)
+            R = sp.csr_matrix((r_vals, (r_rows, r_cols)), shape=shape)
             R.sort_indices()
             E.indptr = torch.as_tensor(R.indptr.astype(np.int64),
                                        device=device)

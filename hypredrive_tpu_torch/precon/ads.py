@@ -27,7 +27,6 @@ import torch
 from .ams import AMSState, _ams_apply, build_pi
 from .base import Preconditioner, precon_matrix
 from ..core.errors import ErrorCode, HypredrvError
-from ..ops.device_matrix import EllMatrix
 
 
 def _ads_apply(state, r):
@@ -42,23 +41,23 @@ def build_ads_state(A_host: sp.csr_matrix, C: sp.csr_matrix,
                     G: sp.csr_matrix, coords: np.ndarray, args,
                     dtype: torch.dtype,
                     device: torch.device = torch.device("cpu"),
-                    fine_matrix=None) -> AMSState:
+                    fine_matrix=None, mesh=None) -> AMSState:
     """Construct the ADS state (an AMSState with spaces 0/1/2 =
     smoothing / nested AMS on the curl space / Π_RT) on ``device``;
-    ``fine_matrix`` is reused as the smoother's A when given."""
+    ``fine_matrix`` is reused as the smoother's A when given.  With
+    ``mesh`` every operator is a row-sharded DistEllMatrix and every
+    hierarchy runs the distributed setup (as in ``build_ams_state``)."""
     from .amg.hierarchy import setup_hierarchy
     from ..config.sections import AMG_SCHEMA
+    from ..parallel import mesh_ops
+
+    op, vec = mesh_ops(mesh, dtype, device)
+    device = mesh.device if mesh is not None else device
 
     coords = np.asarray(coords, dtype=np.float64)
     dim = coords.shape[1]
     A_host = sp.csr_matrix(A_host)
     C = sp.csr_matrix(C)
-
-    def op(M):
-        return EllMatrix.from_csr(sp.csr_matrix(M), dtype=dtype, device=device)
-
-    def vec(v):
-        return torch.as_tensor(v, dtype=dtype, device=device)
 
     B_C = sp.csr_matrix(C.T @ A_host @ C)
     B_C = B_C + 1e-12 * sp.identity(B_C.shape[0])
@@ -87,17 +86,18 @@ def build_ads_state(A_host: sp.csr_matrix, C: sp.csr_matrix,
         op(Pi_edge), op(Pi_edge.T),
         None,
         setup_hierarchy(B_Pi_edge, amg_args, dtype=dtype, device=device,
-                        dof_func=dof_func_e),
+                        dof_func=dof_func_e, mesh=mesh),
         cycle_type=int(ams_sub.get("cycle_type", 1) or 1),
         relax_times=max(1, int(ams_sub.get("relax_times", 1) or 1)),
     )
     bpi_state = setup_hierarchy(B_Pi, amg_args, dtype=dtype, device=device,
-                                dof_func=dof_func_pi)
+                                dof_func=dof_func_pi, mesh=mesh)
 
     relax_times = max(1, int(args.get("relax_times", 1)))
     weight = float(args.get("relax_weight", 1.0))
     l1 = np.asarray(np.abs(A_host).sum(axis=1)).ravel()
-    A = fine_matrix if fine_matrix is not None else op(A_host)
+    A = fine_matrix if fine_matrix is not None and mesh is None \
+        else op(A_host)
     return AMSState(
         A,
         (vec(np.where(l1 != 0, weight / l1, 1.0)),),

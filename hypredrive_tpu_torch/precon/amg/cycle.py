@@ -3,7 +3,9 @@
 Counterpart of ``hypredrive_tpu/precon/amg/cycle.py``.  Eager torch: each
 smoother step is a matvec (DIA + CSR kernels, or ``torch.mv`` on the dense
 coarse levels) and a few vector ops; grid transfers are the same matvec,
-and the coarsest solve is a dense matvec with the uploaded inverse.
+and the coarsest solve is a dense matvec with the uploaded inverse.  On a
+row-shard mesh the same code runs on ``DistEllMatrix`` levels and padded
+global vectors (the padded coarsest inverse keeps pad entries zero).
 ``torch.profiler.record_function`` spans ``amg_L{l}_pre/restrict/post``
 group device time per level and phase in a profiler trace.
 """

@@ -82,6 +82,7 @@ class AMGState:
     coarse_inv: Optional[torch.Tensor]  # dense inverse of coarsest A
     cycle_type: int = 0                  # 0=V, 1=W
     max_iter: int = 1
+    mesh: object = None                  # the row-shard mesh, if any
 
 
 def _galerkin_rap(A_l: sp.csr_matrix, P: sp.csr_matrix,
@@ -150,14 +151,20 @@ def _power_lambda_max(A_host: sp.csr_matrix, d_inv: np.ndarray,
 
 def _smoother_arrays(kind: str, A_host: sp.csr_matrix, dtype, device,
                      cheby_args=None, weight: float = 1.0,
-                     fmask: Optional[np.ndarray] = None) -> Tuple:
+                     fmask: Optional[np.ndarray] = None,
+                     upload=None) -> Tuple:
     """Chebyshev: (d_inv, θ, δ, ρ_k); (ℓ1-)Jacobi: (d_inv,); hybrid GS:
     (d_inv, L_strict or None, U_strict or None); the F/C-masked ``cf-*``
     and ``air-*`` kinds: their base kind's (d_inv,) and the {0,1} F-point
-    mask (all ones when none is given).  Vectors and matrices are on
-    ``device``; the Chebyshev scalars stay Python floats."""
+    mask (all ones when none is given).  Vectors are on ``device``, the
+    GS triangles are ``upload(M)`` (default: an EllMatrix on ``device``);
+    the Chebyshev scalars stay Python floats."""
     def vec(a):
         return torch.as_tensor(a, dtype=dtype, device=device)
+
+    if upload is None:
+        def upload(M):
+            return EllMatrix.from_csr(M, dtype=dtype, device=device)
 
     if kind.startswith(("air-", "cf-")):
         base = _smoother_arrays(kind.split("-", 1)[1], A_host, dtype, device,
@@ -184,11 +191,9 @@ def _smoother_arrays(kind: str, A_host: sp.csr_matrix, dtype, device,
         d = vec(np.where(diag != 0, weight / diag, 1.0))
         L = U = None
         if kind in ("gs-fwd", "gs-sym"):
-            L = EllMatrix.from_csr(sp.tril(A_host, -1, format="csr"),
-                                   dtype=dtype, device=device)
+            L = upload(sp.tril(A_host, -1, format="csr"))
         if kind in ("gs-bwd", "gs-sym"):
-            U = EllMatrix.from_csr(sp.triu(A_host, 1, format="csr"),
-                                   dtype=dtype, device=device)
+            U = upload(sp.triu(A_host, 1, format="csr"))
         return (d, L, U)
     if kind == "jacobi":
         diag = A_host.diagonal()
@@ -196,6 +201,22 @@ def _smoother_arrays(kind: str, A_host: sp.csr_matrix, dtype, device,
     # l1-jacobi: D = Σ_j |a_ij|
     l1 = np.asarray(np.abs(A_host).sum(axis=1)).ravel()
     return (vec(np.where(l1 != 0, weight / l1, 1.0)),)
+
+
+def _pad_smoother_arrays(arrs: Tuple, n_pad: int, mesh) -> Tuple:
+    """Per-row smoother vectors (on the mesh's device) padded with 1.0
+    (identity pad rows) to the mesh level's ``n_pad`` rows; scalars, short
+    coefficient vectors and matrices (the hybrid-GS triangles, built on
+    the mesh already) pass through."""
+    out = []
+    for a in arrs:
+        if isinstance(a, torch.Tensor) and a.dim() == 1 \
+                and a.shape[0] != n_pad and a.shape[0] > 4:
+            padded = torch.ones(n_pad, dtype=a.dtype, device=mesh.device)
+            padded[:a.shape[0]] = a
+            a = padded
+        out.append(a)
+    return tuple(out)
 
 
 def _fsai_smoother(A_l: sp.csr_matrix, fs, dtype, device) -> Tuple:
@@ -291,7 +312,8 @@ def setup_hierarchy(A_host: sp.csr_matrix, amg_args,
                     device: torch.device = torch.device("cpu"),
                     fine_matrix: Optional[EllMatrix] = None,
                     dof_func: Optional[np.ndarray] = None,
-                    interp_vectors: Optional[np.ndarray] = None) -> AMGState:
+                    interp_vectors: Optional[np.ndarray] = None,
+                    mesh=None) -> AMGState:
     """Build the multigrid hierarchy from the AMG config Args (schema:
     config/sections.py AMG_SCHEMA; ref arg structs amg.h:23-123) and upload
     it to ``device``.  ``fine_matrix`` is reused as the finest level's A
@@ -301,7 +323,39 @@ def setup_hierarchy(A_host: sp.csr_matrix, amg_args,
     levels.  ``interp_vectors`` (near-null-space modes, (n, k) or (k, n))
     are folded into every level's P when ``interp_vec_variant`` > 0 (ref:
     amg.c:602 AMGSetRBMs); their coarse copies are the C-point
-    injection."""
+    injection.
+
+    With ``mesh`` (``parallel.mesh.Mesh``) every level's A, P and R is a
+    row-sharded ``DistEllMatrix`` on ``mesh.device`` and the smoother
+    vectors are padded to its rows.  A config inside
+    ``parallel.dist_setup.supports_dist_setup`` (and no interpolation
+    vectors) runs the distributed setup, from the matrix split into row
+    blocks or from a LIST of per-shard row blocks (global columns);
+    outside it, parts are assembled with a warning and the host-global
+    setup is uploaded level by level (without FSAI smoothers, as in the
+    JAX package's mesh path)."""
+    if mesh is not None:
+        from ...parallel.dist_setup import (setup_hierarchy_dist,
+                                            split_rows, supports_dist_setup)
+
+        dist_ok = supports_dist_setup(amg_args) and interp_vectors is None
+        if isinstance(A_host, (list, tuple)):
+            if dist_ok:
+                return setup_hierarchy_dist(A_host, amg_args, mesh,
+                                            dtype=dtype, dof_func=dof_func)
+            from ...core.logging import logger
+
+            logger.warn("AMG config outside the distributed-setup subset; "
+                        "assembling the global matrix for host-global setup",
+                        obj="amg-dist")
+            A_host = sp.csr_matrix(sp.vstack(A_host))
+        elif dist_ok:
+            return setup_hierarchy_dist(
+                split_rows(sp.csr_matrix(A_host), mesh.n_shards), amg_args,
+                mesh, dtype=dtype, dof_func=dof_func)
+        device, fine_matrix = mesh.device, None
+    elif isinstance(A_host, (list, tuple)):
+        raise ValueError("per-shard matrix parts require a mesh")
     kind, up_kind = _smoother_kinds(amg_args)
     device = torch.device(device)
     if fine_matrix is not None and (fine_matrix.dtype != dtype
@@ -325,7 +379,7 @@ def setup_hierarchy(A_host: sp.csr_matrix, amg_args,
     # complex smoother on the finest levels (ref: amg.c:441-457)
     fsai_levels = (int(amg_args.smoother.num_levels)
                    if int(amg_args.smoother.type) in FSAI_SMOOTHER_TYPES
-                   else 0)
+                   and mesh is None else 0)
     fsai_sweeps = max(1, int(amg_args.smoother.num_sweeps))
     # AIR: non-Galerkin restriction (ref: amg.c:870-877)
     restriction_type = int(itp.restriction_type)
@@ -347,13 +401,27 @@ def setup_hierarchy(A_host: sp.csr_matrix, amg_args,
         if qmax <= 0 and int(amg_args.interp_vec_variant) == 2:
             qmax = 4
 
+    if mesh is not None:
+        from ...parallel.dist_matrix import DistEllMatrix
+
+        def upload(M):
+            return DistEllMatrix.from_csr(M, mesh, dtype=dtype)
+    else:
+        def upload(M):
+            return EllMatrix.from_csr(M, dtype=dtype, device=device)
+
     def smoothers(A_l, fmask=None):
-        sm = _smoother_arrays(kind, A_l, dtype, device, rlx.chebyshev,
-                              weight, fmask)
+        def arrays(k):
+            sm = _smoother_arrays(k, A_l, dtype, device, rlx.chebyshev,
+                                  weight, fmask, upload)
+            if mesh is None:
+                return sm
+            n_pad = -(-A_l.shape[0] // mesh.n_shards) * mesh.n_shards
+            return _pad_smoother_arrays(sm, n_pad, mesh)
+
         if up_kind == kind:
-            return sm, None, None
-        return sm, up_kind, _smoother_arrays(up_kind, A_l, dtype, device,
-                                             rlx.chebyshev, weight, fmask)
+            return arrays(kind), None, None
+        return arrays(kind), up_kind, arrays(up_kind)
 
     levels: List[AMGLevel] = []
     A_l = sp.csr_matrix(A_host)
@@ -404,7 +472,7 @@ def setup_hierarchy(A_host: sp.csr_matrix, amg_args,
             A_c, P, R = _pad_level(A_c, P, R, npad_c)
 
         E = (fine_matrix if lvl == 0 and fine_matrix is not None
-             else EllMatrix.from_csr(A_l, dtype=dtype, device=device))
+             else upload(A_l))
         if lvl < fsai_levels:
             sm = _fsai_smoother(A_l, amg_args.smoother.fsai, dtype, device)
             lvl_kind, lvl_pre, lvl_post = "fsai", fsai_sweeps, fsai_sweeps
@@ -414,8 +482,7 @@ def setup_hierarchy(A_host: sp.csr_matrix, amg_args,
             lvl_kind, lvl_pre, lvl_post = kind, pre, post
         levels.append(AMGLevel(
             A=E,
-            P=EllMatrix.from_csr(P, dtype=dtype, device=device),
-            R=EllMatrix.from_csr(R, dtype=dtype, device=device),
+            P=upload(P), R=upload(R),
             smooth_arrays=sm, smoother=lvl_kind,
             pre_sweeps=lvl_pre, post_sweeps=lvl_post,
             up_smoother=up_k, up_arrays=up_sm,
@@ -438,12 +505,14 @@ def setup_hierarchy(A_host: sp.csr_matrix, amg_args,
 
     # coarsest level: dense inverse (ref coarse_type 9 = GE), uploaded once
     sm_c, _, _ = smoothers(A_l)
+    E_c = upload(A_l)
     levels.append(AMGLevel(
-        A=EllMatrix.from_csr(A_l, dtype=dtype, device=device),
-        P=None, R=None, smooth_arrays=sm_c,
+        A=E_c, P=None, R=None, smooth_arrays=sm_c,
         smoother=kind, pre_sweeps=pre, post_sweeps=post,
     ))
-    dense = np.asarray(A_l.todense(), dtype=np.float64)
+    # on a mesh the padded coarsest operator's pad rows are identity rows
+    dense = np.eye(E_c.shape[0])
+    dense[:A_l.shape[0], :A_l.shape[1]] = A_l.todense()
     try:
         inv = np.linalg.inv(dense)
     except np.linalg.LinAlgError:
@@ -454,6 +523,7 @@ def setup_hierarchy(A_host: sp.csr_matrix, amg_args,
         coarse_inv=torch.as_tensor(inv, dtype=dtype, device=device),
         cycle_type=0 if int(getattr(amg_args, "cycle_type", 1)) <= 1 else 1,
         max_iter=max(1, int(amg_args.max_iter)),
+        mesh=mesh,
     )
 
 

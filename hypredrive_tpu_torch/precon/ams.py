@@ -28,7 +28,6 @@ import torch
 
 from .base import Preconditioner, precon_matrix
 from ..core.errors import ErrorCode, HypredrvError
-from ..ops.device_matrix import EllMatrix
 
 
 def build_pi(G: sp.csr_matrix, coords: np.ndarray) -> sp.csr_matrix:
@@ -180,11 +179,18 @@ def _ams_apply(state, r):
 def build_ams_state(A_host: sp.csr_matrix, G: sp.csr_matrix,
                     coords: np.ndarray, args, dtype: torch.dtype,
                     device: torch.device = torch.device("cpu"),
-                    fine_matrix=None) -> AMSState:
+                    fine_matrix=None, mesh=None) -> AMSState:
     """Construct the AMS state on ``device``; ``fine_matrix`` (the solver's
-    device copy of A_host) is reused as the smoother's A when given."""
+    device copy of A_host) is reused as the smoother's A when given.  With
+    ``mesh`` every operator is a row-sharded DistEllMatrix on the mesh's
+    device, the smoother vectors are padded with 1.0 (the padded A's
+    identity rows) and both auxiliary hierarchies run the distributed
+    setup, so the same cycle code serves one device and the mesh."""
     from .amg.hierarchy import _power_lambda_max, setup_hierarchy
     from ..config.sections import AMG_SCHEMA
+    from ..parallel import mesh_ops
+
+    op, vec = mesh_ops(mesh, dtype, device)
 
     coords = np.asarray(coords, dtype=np.float64)
     dim = coords.shape[1]
@@ -204,12 +210,9 @@ def build_ams_state(A_host: sp.csr_matrix, G: sp.csr_matrix,
         else args.get("alpha_amg") or AMG_SCHEMA.defaults()
     beta_args = args.get("beta_amg") or AMG_SCHEMA.defaults()
 
-    def op(M):
-        return EllMatrix.from_csr(sp.csr_matrix(M), dtype=dtype, device=device)
-
     def hierarchy(B, amg_args, dof_func=None):
         return setup_hierarchy(B, amg_args, dtype=dtype, device=device,
-                               dof_func=dof_func)
+                               dof_func=dof_func, mesh=mesh)
 
     dof_func_pi = (np.arange(B_Pi.shape[0]) % dim).astype(np.int64)
     bg_state = hierarchy(B_G, beta_args)
@@ -233,9 +236,6 @@ def build_ams_state(A_host: sp.csr_matrix, G: sp.csr_matrix,
     relax_times = max(1, int(args.get("relax_times", 1)))
     weight = float(args.get("relax_weight", 1.0))
 
-    def vec(v):
-        return torch.as_tensor(v, dtype=dtype, device=device)
-
     if relax_type == 16:
         from .chebyshev import cheby_coefficients
 
@@ -251,7 +251,8 @@ def build_ams_state(A_host: sp.csr_matrix, G: sp.csr_matrix,
         smooth = (vec(np.where(l1 != 0, weight / l1, 1.0)),)
         smoother = "l1-jacobi"
 
-    A = fine_matrix if fine_matrix is not None else op(A_host)
+    A = fine_matrix if fine_matrix is not None and mesh is None \
+        else op(A_host)
     return AMSState(
         A, smooth, op(G), op(G.T), op(Pi), op(Pi.T), bg_state, bpi_state,
         comp_spaces=tuple(comp_spaces), cycle_type=cycle_type,

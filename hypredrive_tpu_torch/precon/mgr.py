@@ -16,8 +16,9 @@ kernels), the F-point gather/scatter is ``index_select``/``index_add`` with
 int64 F indices on the device.  ``record_function`` spans
 ``mgr_L{l}_pre/post`` group device time per level in a profile.
 
-The distributed F-relaxations of the JAX package (``masked-*`` kinds,
-built only by its mesh setup) are not part of this single-device port.
+The ``masked-*`` F-relaxations are built by the mesh setup
+(``parallel/dist_precon.py``) and run on the full space, with no F-point
+gather/scatter.
 """
 
 from __future__ import annotations
@@ -67,7 +68,26 @@ class MGRState:
 # ---------------------------------------------------------------------------
 
 def _f_relax(level: MGRLevel, x, b):
-    """x_F += B_ff (b − A x)_F, f_sweeps times."""
+    """x_F += B_ff (b − A x)_F, f_sweeps times.
+
+    ``masked-jacobi`` (f_state: the masked inverse diagonal fmask·D⁻¹):
+    for diagonal B_ff, x_F += D_ff⁻¹ r_F is exactly x += fmask·D⁻¹·r on
+    the full space.  ``masked-amg`` / ``masked-ilu`` (f_state: the {0,1}
+    F mask and the component set up on Ã = A_ff ⊕ I, identity C rows):
+    x += fmask·B(fmask·r).  Both run on row-sharded operators unchanged
+    (ref: hypre MGR F-relax solvers, mgr.c:3930-4250)."""
+    if level.f_kind == "masked-jacobi":
+        (mdinv,) = level.f_state
+        for _ in range(level.f_sweeps):
+            x = x + mdinv * (b - level.A.matvec(x))
+        return x
+    if level.f_kind in ("masked-amg", "masked-ilu"):
+        fmask, sub_state = level.f_state
+        kind = level.f_kind.split("-", 1)[1]
+        for _ in range(level.f_sweeps):
+            r = b - level.A.matvec(x)
+            x = x + fmask * apply_component(kind, sub_state, fmask * r)
+        return x
     for _ in range(level.f_sweeps):
         r = b - level.A.matvec(x)
         ef = apply_component(level.f_kind, level.f_state,

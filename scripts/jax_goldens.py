@@ -17,6 +17,13 @@ The AMS/ADS paths also solve twice more with b perturbed by 1e-15
 residual history moves, the bound on how closely any other summation
 order can follow it; ``ams_spread5`` measures the same for every AMS
 cycle type at n = 5, where the gauge term's amplified rounding shows.
+The ``dist_*`` tasks run the JAX package's distributed layer on an
+8-device CPU mesh (``--xla_force_host_platform_device_count=8``, set here
+before JAX starts): the three ``dryrun_multichip(8)`` stacks, a 128³
+Laplacian with PCG + AMG from per-shard parts, the nx = 64 multiphysics
+system with GMRES + the mesh MGR and BiCGSTAB + block-Jacobi ILU(0), and
+maxwell_edge_system(32) with PCG + AMS on the mesh; each records its
+host seconds here.  ``--json FILE`` merges into FILE when it exists.
 
     python3 scripts/jax_goldens.py [--only NAME ...] [--json FILE]
                                    [--eigenvalues FILE] [--eig-spread]
@@ -37,9 +44,14 @@ import os
 import subprocess
 import sys
 import tempfile
+import time
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
+
+# the distributed tasks' 8-device CPU mesh (no effect on one-device runs)
+os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "") + " "
+                           "--xla_force_host_platform_device_count=8")
 
 import jax  # noqa: E402
 
@@ -479,6 +491,236 @@ def capi_lap(n=32):
             "rel_res_norm": float(res.rel_res_norm)}
 
 
+# ---------------------------------------------------------------------------
+# the distributed layer on the 8-device CPU mesh
+# ---------------------------------------------------------------------------
+
+N_SHARDS = 8
+DIST_MGR64 = {
+    "level": {0: {"f_dofs": [2], "f_relaxation": {"amg": {"max_iter": 1}}},
+              1: {"f_dofs": [1], "f_relaxation": "jacobi"}},
+    "coarsest_level": "amg"}
+
+
+def _mesh():
+    from hypredrive_tpu.parallel import make_mesh
+
+    assert len(jax.devices()) >= N_SHARDS, "needs the 8-device CPU mesh"
+    return make_mesh(N_SHARDS)
+
+
+def _mesh_solve(kind, D, apply_fn, state, b, rtol, max_iter):
+    """A Krylov core preconditioned by ``apply_fn(state, r)`` on the mesh
+    from x0 = 0: (x, iters, history).  The operator and the state are
+    arguments of the jitted solve, not constants folded into it."""
+    import jax.numpy as jnp
+    from hypredrive_tpu.solvers.bicgstab import _bicgstab_core
+    from hypredrive_tpu.solvers.gmres import _gmres_core
+    from hypredrive_tpu.solvers.pcg import _pcg_core
+
+    def run(D, state, b):
+        mv = D.matvec
+
+        def pc(r):
+            return apply_fn(state, r)
+        x0 = jnp.zeros_like(b)
+        if kind == "pcg":
+            return _pcg_core(mv, pc, b, x0, rtol, 0.0, max_iter, True, 0)
+        if kind == "gmres":
+            return _gmres_core(mv, pc, b, x0, jnp.asarray(rtol),
+                               jnp.asarray(0.0), max_iter, 30, False)
+        return _bicgstab_core(mv, pc, b, x0, jnp.asarray(rtol),
+                              jnp.asarray(0.0), max_iter)
+
+    out = jax.jit(run)(D, state, b)
+    iters = int(out[1])
+    return (np.asarray(out[0]), iters,
+            np.asarray(out[4])[:iters + 1])
+
+
+def _two_field(A_host):
+    """__graft_entry__.dryrun_multichip's two-field CPR system."""
+    import scipy.sparse as sp
+
+    nc = A_host.shape[0]
+    coo = A_host.tocoo()
+    rows = list(2 * coo.row); cols = list(2 * coo.col)
+    vals = list(coo.data)
+    rows += list(2 * np.arange(nc) + 1)
+    cols += list(2 * np.arange(nc) + 1); vals += [2.0] * nc
+    rows += list(2 * np.arange(nc) + 1)
+    cols += list(2 * np.arange(nc)); vals += [0.3] * nc
+    rows += list(2 * np.arange(nc))
+    cols += list(2 * np.arange(nc) + 1); vals += [0.1] * nc
+    A2 = sp.csr_matrix((vals, (rows, cols)), shape=(2 * nc, 2 * nc))
+    return A2, np.tile([0, 1], nc)
+
+
+def _stack(name, A, x, iters, hist, t0):
+    n = A.shape[0]
+    return {"stack": name, "rows": n, "iters": iters,
+            "rel": float(np.linalg.norm(np.ones(n) - A @ x[:n])
+                         / np.sqrt(n)),
+            "history": hist.tolist(), "seconds": time.perf_counter() - t0}
+
+
+def dist_dryrun8():
+    """The three stacks of __graft_entry__.dryrun_multichip(8): PCG + AMG
+    (distributed setup from parts, 8³), GMRES + the mesh MGR (AMG
+    F-relaxation) and BiCGSTAB + block-Jacobi ILU(0) on the two-field
+    system; b = ones."""
+    from hypredrive_tpu.config.sections import AMG_SCHEMA, MGR_SCHEMA
+    from hypredrive_tpu.parallel import DistEllMatrix
+    from hypredrive_tpu.parallel import dist_precon as dp
+    from hypredrive_tpu.parallel import dist_setup as ds
+    from hypredrive_tpu.parallel.dist_matrix import pad_vector
+    from hypredrive_tpu.precon.amg.cycle import amg_apply
+    from hypredrive_tpu.precon.amg.hierarchy import setup_hierarchy
+    from hypredrive_tpu.precon.ilu import _tri_jacobi_apply
+    from hypredrive_tpu.precon.mgr import mgr_apply
+
+    mesh = _mesh()
+    A = laplacian_3d_7pt(8)
+    out = []
+    t0 = time.perf_counter()
+    D = DistEllMatrix.from_csr(A, mesh)
+    st = setup_hierarchy(ds.split_rows(A, N_SHARDS), AMG_SCHEMA.defaults(),
+                         mesh=mesh)
+    b = pad_vector(np.ones(A.shape[0]), D.shape[0], mesh)
+    x, it, h = _mesh_solve("pcg", D, amg_apply, st, b, 1e-8, 50)
+    out.append(_stack("pcg_amg", A, x, it, h, t0))
+    A2, dofmap = _two_field(A)
+    parts2 = ds.split_rows(A2, N_SHARDS)
+    args = MGR_SCHEMA.parse(
+        {"level": {0: {"f_dofs": [1],
+                       "f_relaxation": {"amg": {"max_iter": 1}}}},
+         "coarsest_level": "amg"}, "mgr", [])
+    t0 = time.perf_counter()
+    D2 = DistEllMatrix.from_csr(A2, mesh)
+    b2 = pad_vector(np.ones(A2.shape[0]), D2.shape[0], mesh)
+    sm = dp.setup_mgr_dist(parts2, args, dofmap, mesh)
+    x, it, h = _mesh_solve("gmres", D2, mgr_apply, sm, b2, 1e-6, 100)
+    out.append(_stack("gmres_mgr", A2, x, it, h, t0))
+    t0 = time.perf_counter()
+    si = dp.build_bj_ilu_dist(parts2, mesh)
+    x, it, h = _mesh_solve("bicgstab", D2, _tri_jacobi_apply, si, b2,
+                           1e-8, 200)
+    out.append(_stack("bicgstab_bj_ilu", A2, x, it, h, t0))
+    return {"stacks": out}
+
+
+def dist_lap128(nx=128):
+    """nx³ Laplacian, PCG + AMG (defaults) to 1e-8 on the mesh, the
+    hierarchy from per-shard parts (the distributed setup), b = ones."""
+    from hypredrive_tpu.config.sections import AMG_SCHEMA
+    from hypredrive_tpu.parallel import dist_setup as ds
+    from hypredrive_tpu.parallel.dist_matrix import pad_vector
+    from hypredrive_tpu.precon.amg.cycle import amg_apply
+    from hypredrive_tpu.precon.amg.hierarchy import setup_hierarchy
+
+    mesh = _mesh()
+    A = laplacian_3d_7pt(nx)
+    t0 = time.perf_counter()
+    st = setup_hierarchy(ds.split_rows(A, N_SHARDS), AMG_SCHEMA.defaults(),
+                         mesh=mesh)
+    setup_s = time.perf_counter() - t0
+    D = st.levels[0].A
+    b = pad_vector(np.ones(A.shape[0]), D.shape[0], mesh)
+    t0 = time.perf_counter()
+    x, it, h = _mesh_solve("pcg", D, amg_apply, st, b, 1e-8, 100)
+    out = _stack("pcg_amg", A, x, it, h, t0)
+    out.update(nnz=int(A.nnz), setup_s=setup_s,
+               level_rows=[lv.A.shape[0] for lv in st.levels],
+               dia_offsets=list(D.dia_offsets), halo_offsets=list(D.offsets),
+               ext_size=int(D.ext_size))
+    return out
+
+
+def dist_mgr64(nx=64):
+    """multiphysics_fv_system(nx, 3) (chip_smoke's mgr_64 system): GMRES(30)
+    + the mesh MGR (level 0 F = dof 2 with an AMG F-relaxation, level 1
+    F = dof 1 with Jacobi, coarsest AMG) to 1e-6, then BiCGSTAB + the
+    mesh's block-Jacobi ILU(0) to 1e-2 (it stalls near 3e-3: at 1e-6 it
+    runs all 200 iterations); b = ones."""
+    from hypredrive_tpu.config.sections import MGR_SCHEMA
+    from hypredrive_tpu.parallel import dist_precon as dp
+    from hypredrive_tpu.parallel import dist_setup as ds
+    from hypredrive_tpu.parallel.dist_matrix import pad_vector
+    from hypredrive_tpu.precon.ilu import _tri_jacobi_apply
+    from hypredrive_tpu.precon.mgr import mgr_apply
+    from hypredrive_tpu_torch.ops.csr import multiphysics_fv_system
+
+    mesh = _mesh()
+    A, dofmap = multiphysics_fv_system(nx, 3, contrast=0.3, coupling=0.12,
+                                       convection=0.08)
+    parts = ds.split_rows(A, N_SHARDS)
+    args = MGR_SCHEMA.parse(DIST_MGR64, "mgr", [])
+    t0 = time.perf_counter()
+    sm = dp.setup_mgr_dist(parts, args, dofmap, mesh)
+    mgr_setup_s = time.perf_counter() - t0
+    D = sm.levels[0].A
+    b = pad_vector(np.ones(A.shape[0]), D.shape[0], mesh)
+    t0 = time.perf_counter()
+    x, it, h = _mesh_solve("gmres", D, mgr_apply, sm, b, 1e-6, 100)
+    mgr = _stack("gmres_mgr", A, x, it, h, t0)
+    mgr.update(setup_s=mgr_setup_s,
+               level_rows=[lv.A.shape[0] for lv in sm.levels],
+               f_kinds=[lv.f_kind for lv in sm.levels],
+               coarsest_level_rows=[lv.A.shape[0]
+                                    for lv in sm.coarsest_state.levels])
+    t0 = time.perf_counter()
+    si = dp.build_bj_ilu_dist(parts, mesh)
+    ilu_setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    x, it, h = _mesh_solve("bicgstab", D, _tri_jacobi_apply, si, b, 1e-2,
+                           200)
+    ilu = _stack("bicgstab_bj_ilu", A, x, it, h, t0)
+    ilu.update(setup_s=ilu_setup_s)
+    return {"rows": A.shape[0], "nnz": int(A.nnz), "mgr": mgr,
+            "bj_ilu": ilu}
+
+
+def dist_ams(n=32, spread_seeds=(1, 2)):
+    """maxwell_edge_system(n, eps=0.05, dim=3), PCG + AMS (cycle type 1) to
+    1e-8 with every operator on the mesh (build_ams_state(mesh=)), b =
+    A·u(−1, 1) from seed 11; ``history_spread`` as aux_path's."""
+    import jax.numpy as jnp
+    from hypredrive_tpu.config.sections import AMS_SCHEMA
+    from hypredrive_tpu.parallel.dist_matrix import pad_vector
+    from hypredrive_tpu.precon.ams import _ams_apply, build_ams_state
+    from hypredrive_tpu_torch.ops.csr import maxwell_edge_system
+
+    mesh = _mesh()
+    A, G, coords = maxwell_edge_system(n, eps=0.05, dim=3)
+    args = AMS_SCHEMA.parse({"cycle_type": 1}, "ams", [])
+    t0 = time.perf_counter()
+    st = build_ams_state(A, G, coords, args, jnp.float64, mesh=mesh)
+    setup_s = time.perf_counter() - t0
+    b0 = A @ np.random.default_rng(11).uniform(-1, 1, A.shape[0])
+
+    def solve(b):
+        bd = pad_vector(b, st.A.shape[0], mesh)
+        x, it, h = _mesh_solve("pcg", st.A, _ams_apply, st, bd, 1e-8, 400)
+        return x[:len(b)], it, h
+
+    t0 = time.perf_counter()
+    x, iters, hist = solve(b0)
+    solve_s = time.perf_counter() - t0
+    spread = 0.0
+    for seed in spread_seeds:
+        b = b0 * (1.0 + 1e-15 * np.random.default_rng(
+            seed).standard_normal(len(b0)))
+        _, it_p, h_p = solve(b)
+        k = min(len(hist), len(h_p))
+        spread = max(spread, float(np.abs(h_p[:k] / hist[:k] - 1).max()))
+        assert it_p == iters, (it_p, iters)
+    return {"rows": A.shape[0], "nnz": int(A.nnz), "iters": iters,
+            "rel_res_norm": float(np.linalg.norm(b0 - A @ x)
+                                  / np.linalg.norm(b0)),
+            "history": hist.tolist(), "history_spread": spread,
+            "setup_s": setup_s, "solve_s": solve_s}
+
+
 TASKS = {
     "scaling_xref": scaling_xref,
     "elasticity_12": lambda: elasticity((12, 6, 6)),
@@ -494,6 +736,10 @@ TASKS = {
     "ams_spread5": ams_spread,
     "laplacian_driver": laplacian_driver,
     "capi_lap32": capi_lap,
+    "dist_dryrun8": dist_dryrun8,
+    "dist_lap128": dist_lap128,
+    "dist_mgr64": dist_mgr64,
+    "dist_ams32": dist_ams,
 }
 
 
@@ -511,11 +757,19 @@ def main() -> int:
     register_precon_preset(*ELASTICITY_PRESET)
     results = {}
     for name in (args.only if args.only is not None else sorted(TASKS)):
+        t0 = time.perf_counter()
         results[name] = TASKS[name]()
         print(json.dumps({name: results[name]}), flush=True)
+        print(f"{name}: {time.perf_counter() - t0:.1f} s", file=sys.stderr,
+              flush=True)
     if args.json:
+        merged = {}
+        if os.path.exists(args.json):
+            with open(args.json) as f:
+                merged = json.load(f)
+        merged.update(results)
         with open(args.json, "w") as f:
-            json.dump(results, f, indent=1)
+            json.dump(merged, f, indent=1)
             f.write("\n")
     if args.eigenvalues:
         w = ex6_eigenvalues()

@@ -2,8 +2,9 @@
 repaired faults, against the JAX package on the CPU.
 
 * ``initialize``/``finalize``/``is_initialized`` and the live-driver
-  registry (``core/runtime.py``): ``finalize`` destroys a leaked driver;
-  ``destroy`` is idempotent and prints library-mode stats once.
+  registry (``core/runtime.py``): ``finalize`` destroys a leaked driver
+  and the process group of ``initialize(distributed=True)``; ``destroy``
+  is idempotent and prints library-mode stats once.
 * ``examples/drivers/laplacian.py``'s flow: the ``poisson`` preset, five
   repeated solves on one driver, each with the JAX package's count (the
   reference's golden is 5).
@@ -23,7 +24,6 @@ import hypredrive_tpu_torch as hd
 import hypredrive_tpu_torch.solvers as solvers
 from hypredrive_tpu.core import runtime as jax_runtime
 from hypredrive_tpu_torch.core import runtime
-from hypredrive_tpu_torch.core.errors import ErrorCode, HypredrvError
 from hypredrive_tpu_torch.linsys import system as system_mod
 from hypredrive_tpu_torch.ops.csr import laplacian_3d_7pt
 
@@ -61,9 +61,24 @@ def test_runtime_verbs():
     assert hd.is_initialized()
     hd.initialize()                       # a second call is a no-op
     assert hd.is_initialized()
-    with pytest.raises(HypredrvError) as exc:
-        hd.initialize(distributed=True)
-    assert exc.value.code == ErrorCode.NOT_IMPLEMENTED
+    # distributed=True: a process group of the caller's (gloo, world size
+    # 1, a free port on the loopback address); finalize destroys it
+    import socket
+    import torch.distributed as dist
+
+    hd.finalize()
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    hd.initialize(distributed=True, backend="gloo",
+                  init_method=f"tcp://127.0.0.1:{port}", world_size=1,
+                  rank=0)
+    try:
+        assert hd.is_initialized() and dist.is_initialized()
+        assert dist.get_world_size() == 1
+    finally:
+        hd.finalize()
+    assert not hd.is_initialized() and not dist.is_initialized()
 
 
 def _solved_driver(module, policy_overrides):
