@@ -9,7 +9,7 @@ Phases (any failure exits non-zero and prints no result line):
 
 1. Environment: the card's name and power limit, CUDA, ``nvcc``; build the
    CUDA kernels from ``hypredrive_tpu_torch/csrc`` (timed).
-2. The solve paths, each with both kernels' launch counters zeroed just
+2. The solve paths, each with every kernel's launch counter zeroed just
    before it and read just after; each must launch the kernels it runs:
    - ex1: examples/ex1.yml through ``hypredrive_tpu_torch.cli`` in float64,
      5 iterations, relative residual ≤ 1e-6, solution checked against
@@ -104,7 +104,17 @@ Phases (any failure exits non-zero and prints no result line):
      elasticity skipped) and bindings (the MATLAB MEX and a C++ program
      on ``interfaces/cpp``'s header linked against the port's shim and run
      on the card, the Julia and Fortran symbols exported, the C surface by
-     ctypes in this process).
+     ctypes in this process); flagship (``flagship.entry()``, the port of
+     ``__graft_entry__.entry()``: the JAX entry's count) and profile_solve
+     (``tools/profile_solve.py`` on examples/ex3.yml, a Chrome trace).
+   Every Krylov solve runs through the device loop: captured CUDA graphs,
+   one replay per iteration (GMRES: per inner step, and one for each
+   cycle's start and end).  On bench64, lap64, lap128_f64, mgr_64,
+   elasticity_rbm, ams_maxwell64 and dist_mgr64 the first solve (with its
+   capture), a warm solve and a profiled one are timed, and the same solve
+   runs as the eager body on the card (launches uncounted), which must
+   give the same count, history (rel 1e-12 in float64, 1e-5 in float32)
+   and kernel launches.
 3. Kernels against their plain torch versions on the card, at the shapes
    of the 128³ solve (on lap128's own hierarchy): the fine-grid DIA
    operator, and the CSR remainders of P, R and the first coarse A;
@@ -127,6 +137,12 @@ Phases (any failure exits non-zero and prints no result line):
    level-0 AIR restriction; at ams_maxwell64's G, Gᵀ, Π, Πᵀ and edge
    matrix; and at shard 1 of dist_lap128's A0 (its DIA part and the CSR
    remainder holding its halo columns).
+4. device_loop: the figures of step 2's device-loop paths, and the Givens
+   update and the Hessenberg back-substitution (``csrc/krylov_small.cu``,
+   the device form of XLA code, not TPU kernels) at GMRES(30) against
+   their plain versions, bit for bit in float32 and float64, with their
+   device times, bounds and (back-substitution) the time of
+   ``torch.linalg.solve_triangular``.
 
 The JAX package's numbers pinned below, and those in
 ``data/golden/jax_counts.json``, come from ``scripts/jax_goldens.py`` run on
@@ -420,6 +436,125 @@ def replay_ms(fns, reps=20, replays=5):
     torch.cuda.synchronize()
     del graph
     return start.elapsed_time(end) / (replays * reps)
+
+
+class uncounted:
+    """Launches inside do not count: a comparison with the eager body or
+    a plain version, not the main path (every counter ends as it began)."""
+
+    def __enter__(self):
+        self.saved = {k: f.launches for k, f in launch_counters().items()}
+
+    def __exit__(self, *exc):
+        for k, f in launch_counters().items():
+            f.launches = self.saved[k]
+
+
+def loop_begin():
+    """Before a path's first solve: zero the device loop's stats and the
+    peak of allocated memory; (start time, memory allocated now)."""
+    import torch
+    from hypredrive_tpu_torch.solvers import device_loop
+
+    torch.cuda.synchronize()
+    device_loop.reset_stats()
+    torch.cuda.reset_peak_memory_stats()
+    return time.perf_counter(), torch.cuda.memory_allocated()
+
+
+def api_run(drv):
+    """One solve from the initial guess through the driver API: (iters,
+    history)."""
+    def run():
+        drv.reset_initial_guess()
+        res = drv.linear_solver_apply()
+        return res.iters, res.res_history
+    return run
+
+
+def device_loop_check(report, key, run, begin, dtype="float64",
+                      pinned=None):
+    """The device loop on one path, after its first solve (``loop_begin()``
+    before it gave ``begin``): the first solve's wall, capture, graphs
+    and nodes; a warm solve (graph replays: wall, replays, masked replays,
+    host reads); the same under torch.profiler (device time, busy share,
+    kernel records); then the same solve as the eager body on the card,
+    uncounted, which must give the same count (``pinned`` too, if given)
+    and history (rel 1e-12 in float64, 1e-5 in float32) and the same
+    kernel launches.  ``run()`` solves from the path's initial guess and
+    returns (iters, history)."""
+    import numpy as np
+    import torch
+    from hypredrive_tpu_torch.solvers import device_loop as dl
+
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - begin[0]
+    first = dict(dl.stats)
+    # what the first solve (its buffers, capture and graph pool) added
+    peak = torch.cuda.max_memory_allocated() - begin[1]
+    counters = launch_counters()
+    n0 = {k: f.launches for k, f in counters.items()}
+    dl.reset_stats()
+    (g_iters, g_hist), warm_s = timed(run)
+    warm = dict(dl.stats)
+    graph_launches = {k: f.launches - n0[k] for k, f in counters.items()}
+    dl.reset_stats()
+    prof = profile_run(run)
+    # every replayed node is one device record: fewer records means the
+    # profiler dropped some, and its busy share is low
+    replayed = dl.stats["replayed_nodes"]
+    with uncounted():
+        n1 = {k: f.launches for k, f in counters.items()}
+        with dl.eager():
+            (e_iters, e_hist), eager_s = timed(run)
+        eager_launches = {k: f.launches - n1[k] for k, f in counters.items()}
+    k = g_iters + 1
+    g_hist = np.asarray(g_hist[:k], dtype=np.float64)
+    e_hist = np.asarray(e_hist[:k], dtype=np.float64)
+    dev = float(np.max(np.abs(g_hist / e_hist - 1))) if k else 0.0
+    tol = 1e-12 if dtype == "float64" else 1e-5
+    out = {
+        "first_solve_s": first_s, "warm_solve_s": warm_s,
+        "eager_solve_s": eager_s, "iters": g_iters,
+        "capture_s": first["capture_s"], "captures": first["captures"],
+        "graphs": first["graphs"], "graph_nodes": first["nodes"],
+        "largest_graph_nodes": first["max_nodes"],
+        "replays_per_solve": warm["replays"],
+        "masked_replays_per_solve": warm["masked"],
+        "host_reads_per_solve": warm["host_reads"],
+        "graph_solves": warm["graph_solves"],
+        "device_s": prof["device_busy_s"], "profiled_wall_s": prof["wall_s"],
+        "busy": prof["device_busy_s"] / prof["wall_s"],
+        "device_items": prof["device_items"],
+        "replayed_nodes": replayed,
+        "profiler_records_complete": prof["device_items"] >= replayed,
+        "peak_allocated_bytes": peak,
+        "history_rel_dev_vs_eager": dev,
+        "history_bit_identical": bool(np.array_equal(g_hist, e_hist)),
+        "launches_graph": graph_launches, "launches_eager": eager_launches}
+    report.setdefault("device_loop", {})[key] = out
+    print(f"device loop {key}: first solve {first_s:.4f} s (capture "
+          f"{first['capture_s']:.4f} s, {first['graphs']} graphs, "
+          f"{first['nodes']} nodes, largest {first['max_nodes']}), warm "
+          f"{warm_s:.4f} s, {warm['replays']} replays ({warm['masked']} "
+          f"masked), {warm['host_reads']} host reads; profiled "
+          f"{prof['wall_s']:.4f} s, device {prof['device_busy_s']:.4f} s "
+          f"({100 * out['busy']:.1f}% busy, {prof['device_items']} device "
+          f"records for {replayed} replayed graph nodes); "
+          f"eager body {eager_s:.4f} s, {e_iters} iterations, history dev "
+          f"{dev:.3e}; first solve's peak allocation {peak / 2**20:.1f} "
+          f"MiB")
+    check(warm["graph_solves"] >= 1 and warm["captures"] == 0,
+          f"{key}: the warm solve did not replay cached graphs ({warm})")
+    check(g_iters == e_iters and (pinned is None or g_iters == pinned),
+          f"{key}: graphs {g_iters} iterations, eager body {e_iters}"
+          + ("" if pinned is None else f", pinned {pinned}"))
+    check(dev <= tol, f"{key}: graph history deviates from the eager "
+                      f"body's by {dev:.3e} > {tol}")
+    check(graph_launches == eager_launches,
+          f"{key}: kernel launches {graph_launches} by graphs, "
+          f"{eager_launches} eager")
+    return out
 
 
 def phase_env(report):
@@ -786,9 +921,11 @@ def phase_ex1(report):
           f"ex1: host check failed (rel res {host_rel:.3e}, err {err:.3e})")
 
 
-def run_laplacian(nx, dtype, amg=None):
+def run_laplacian(nx, dtype, amg=None, report=None, loop_key=None,
+                  pinned=None):
     """PCG + AMG to 1e-8 on an nx³ Laplacian through the driver API
-    (``amg``: the AMG section, else the defaults)."""
+    (``amg``: the AMG section, else the defaults); ``loop_key`` names its
+    device-loop check (``device_loop_check``) in ``report``."""
     import numpy as np
     from hypredrive_tpu_torch import HypreDrive
 
@@ -805,9 +942,13 @@ def run_laplacian(nx, dtype, amg=None):
     drv.precon_create()
     drv.linear_solver_create()
     drv.linear_solver_setup()
+    begin = loop_begin()
     res = drv.linear_solver_apply()
     e = drv.stats.entries[-1]
     x = drv.get_solution()
+    if loop_key:
+        device_loop_check(report, loop_key, api_run(drv), begin, dtype,
+                          pinned)
     state = drv.precon.state
     levels = len(state.levels)
     out = {"rows": sys_.num_rows, "nnz": sys_.nnz, "levels": levels,
@@ -883,7 +1024,8 @@ def profile_run(run):
 
 
 def phase_64(report):
-    r = report["lap64_f32"] = run_laplacian(64, "float32")
+    r = report["lap64_f32"] = run_laplacian(64, "float32", report=report,
+                                            loop_key="lap64")
     del r["state"]
     # the recurrence reaches 1e-8; the true float32 residual stops near
     # eps32·κ(A) ≈ 6e-8 · 1.7e3 ≈ 1e-4 for this operator
@@ -896,7 +1038,8 @@ def phase_64(report):
 
 
 def phase_128(report):
-    r = report["lap128_f64"] = run_laplacian(128, "float64")
+    r = report["lap128_f64"] = run_laplacian(
+        128, "float64", report=report, loop_key="lap128_f64")
     KEEP["lap128_state"] = r.pop("state")   # for the kernel checks
     check(r["rows"] == 2097152 and r["nnz"] == 14581760,
           f"128^3: {r['rows']} rows / {r['nnz']} nnz")
@@ -996,8 +1139,11 @@ def phase_mgr64(report):
           f"{setup_s:.3f} s")
     state = drv.precon.state
     coarsest = tuple(lv.A.shape[0] for lv in state.coarsest_state.levels)
+    begin = loop_begin()
     res = drv.linear_solver_apply()
     x = drv.get_solution()
+    device_loop_check(report, "mgr_64", api_run(drv), begin,
+                      pinned=JAX_ITERS_MGR64)
     host_rel = float(np.linalg.norm(1.0 - A @ x) / np.sqrt(A.shape[0]))
     hist = [float(h) for h in res.res_history[:res.iters + 1]]
     k = min(len(hist), len(JAX_HISTORY_MGR64))
@@ -1210,6 +1356,7 @@ def phase_seq64(report):
     from torch.profiler import ProfilerActivity, profile
     from hypredrive_tpu_torch import HypreDrive
     from hypredrive_tpu_torch.io import native
+    from hypredrive_tpu_torch.solvers import device_loop
 
     t0 = time.perf_counter()
     seq, dofmap = drift_sequence(64, len(JAX_ITERS_SEQ64))
@@ -1254,12 +1401,18 @@ def phase_seq64(report):
                 drv.linear_solver_setup()
                 torch.cuda.synchronize()
                 setup_s = time.perf_counter() - t0
+            device_loop.reset_stats()
             res = drv.linear_solver_apply()
             x = drv.get_solution()
             host_rel = float(np.linalg.norm(b - A @ x) / np.linalg.norm(b))
             sysk = {"k": k, "rebuilt": rebuilt, "iters": res.iters,
                     "rel_res_norm": res.rel_res_norm, "host_rel_res": host_rel,
-                    "setup_s": setup_s, "solve_s": res.solve_time}
+                    "setup_s": setup_s, "solve_s": res.solve_time,
+                    # a new A (and, on a rebuild, a new preconditioner)
+                    # is captured anew with the solve
+                    "capture_s": device_loop.stats["capture_s"],
+                    "captures": device_loop.stats["captures"],
+                    "graph_nodes": device_loop.stats["nodes"]}
             if k == 0:
                 sysk["setup_split_s"] = {
                     "ilu0_factor": _span_seconds(prof,
@@ -1276,7 +1429,8 @@ def phase_seq64(report):
                   f" {res.iters} iterations (JAX package "
                   f"{JAX_ITERS_SEQ64[k]}), rel res {res.rel_res_norm!r} "
                   f"(host {host_rel!r}; JAX {JAX_RELRES_SEQ64[k]!r}), setup "
-                  f"{setup_s:.3f} s, solve {res.solve_time:.4f} s"
+                  f"{setup_s:.3f} s, solve {res.solve_time:.4f} s (capture "
+                  f"{sysk['capture_s']:.4f} s, {sysk['graph_nodes']} nodes)"
                   + (f", setup split {sysk['setup_split_s']}"
                      if k == 0 else ""))
             if k == len(seq) - 1:
@@ -1385,6 +1539,13 @@ def phase_elasticity(report):
     out["solves"] = elasticity_solves(drv, A, 3, keep_last=True)
     levels = drv.precon.state.levels
     out["level_rows"] = [lv.A.shape[0] for lv in levels]
+    # the device loop on the kept preconditioner, from a fresh capture
+    from hypredrive_tpu_torch.solvers import device_loop
+    device_loop.release(drv.precon)
+    begin = loop_begin()
+    api_run(drv)()
+    device_loop_check(report, "elasticity_rbm", api_run(drv), begin,
+                      pinned=out["solves"][-1]["iters"])
     drv.reset_initial_guess()
     out["solve_warm_s"] = drv.linear_solver_apply().solve_time
     out["profile"] = profile_solve(drv)
@@ -1789,8 +1950,12 @@ def run_aux_path(report, key, A, precon, setters, gen_s):
           f"{ref['rows']} / {ref['nnz']}")
     b = A @ np.random.default_rng(11).uniform(-1, 1, A.shape[0])
     drv, setup_s = aux_driver(A, precon, setters, b)
+    begin = loop_begin()
     res = drv.linear_solver_apply()
     x = drv.get_solution()
+    if key == "ams_maxwell64":
+        device_loop_check(report, key, api_run(drv), begin,
+                          pinned=ref["iters"])
     host = float(np.linalg.norm(b - A @ x) / np.linalg.norm(b))
     hist = [float(h) for h in res.res_history[:res.iters + 1]]
     k = min(len(hist), len(ref["history"]))
@@ -2227,7 +2392,15 @@ def phase_dist_mgr64(report):
         return mesh_solve(gmres_core, D, lambda r: mgr_apply(sm, r), b,
                           1e-6, 100)
 
+    begin = loop_begin()
     out, first_s = timed(solve_mgr)
+
+    def run_mgr():
+        o = solve_mgr()
+        return o[1], o[4]
+
+    device_loop_check(report, "dist_mgr64", run_mgr, begin,
+                      pinned=ref["mgr"]["iters"])
     _, warm_s = timed(solve_mgr)
     mgr = {"setup_s": mgr_setup_s, "solve_s": first_s,
            "solve_warm_s": warm_s,
@@ -2344,6 +2517,14 @@ def phase_bench(report):
     print(json.dumps(line))
     ex = line["extra"]
     report["bench"] = line
+    print(f"bench: first solve {ex['pcg_amg_first_solve_s']:.4f} s (capture "
+          f"{ex['capture_s']:.4f} s, graph nodes {ex['graph_nodes']}), warm "
+          f"{ex['pcg_amg_solve_s']:.5f} s, device "
+          f"{ex['pcg_amg_solve_device_s']:.5f} s "
+          f"({100 * ex['pcg_amg_solve_busy']:.1f}% busy), "
+          f"{ex['replays_per_solve']} replays, {ex['host_reads_per_solve']} "
+          f"host reads a solve")
+    bench64_loop(report, state, ex["pcg_amg_iters_to_1e-8"])
     cyc = bench.cycle_nnz(state)
     print(f"bench: ex1 {ex['ex1_iters']} iterations (JAX package "
           f"{ref['ex1_iters']}), {ex['amg_levels']} levels "
@@ -2363,6 +2544,83 @@ def phase_bench(report):
         line["value"], ex["amg_vcycle_nnz_per_s"], ex["stream_triad_gbs"],
         ex["pcg_amg_solve_s"], ex["pcg_amg_solve_device_s"])),
         "bench: a rate or time is not a finite positive number")
+
+
+def bench64_loop(report, state, iters):
+    """The bench's solve (PCG + AMG to 1e-8, 64³ float32) on its AMG
+    state: the device loop's check (``device_loop_check``)."""
+    import numpy as np
+    import torch
+    from hypredrive_tpu_torch.ops.csr import laplacian_3d_7pt
+    from hypredrive_tpu_torch.ops.device_matrix import EllMatrix
+    from hypredrive_tpu_torch.precon.amg.cycle import amg_apply
+    from hypredrive_tpu_torch.solvers.pcg import pcg_core
+
+    A = EllMatrix.from_csr(laplacian_3d_7pt(64, dtype=np.float32),
+                           dtype=torch.float32, device="cuda")
+    b = torch.ones(A.shape[0], dtype=torch.float32, device="cuda")
+    x0 = torch.zeros_like(b)
+
+    def run():
+        out = pcg_core(A.matvec, lambda r: amg_apply(state, r), b, x0, 1e-8,
+                       0.0, 100, True, 0)
+        return out[1], out[4]
+
+    begin = loop_begin()
+    run()
+    device_loop_check(report, "bench64", run, begin, "float32", iters)
+
+
+# __graft_entry__.entry() on the CPU (the JAX package): its count and norm
+JAX_ITERS_ENTRY = 6
+JAX_NORM_ENTRY = 7.090098733897321e-06
+
+
+def phase_flagship(report):
+    """``flagship.entry()``, the port of ``__graft_entry__.entry()``: 16³
+    float32 PCG + the default AMG to 1e-6 through the device loop, twice
+    (capture, then replays); the JAX entry's count, its norm to rel 1e-3
+    (float32, other summation orders)."""
+    import torch
+    from hypredrive_tpu_torch import flagship
+
+    fn, args = flagship.entry()
+    (x, iters, norm), first_s = timed(lambda: fn(*args))
+    (x2, iters2, norm2), warm_s = timed(lambda: fn(*args))
+    report["flagship"] = {"iters": iters, "norm": norm, "first_s": first_s,
+                          "warm_s": warm_s}
+    print(f"flagship entry: {iters} iterations (JAX entry "
+          f"{JAX_ITERS_ENTRY}), norm {norm!r} (JAX {JAX_NORM_ENTRY!r}), "
+          f"first {first_s:.4f} s, warm {warm_s:.5f} s")
+    check(iters == iters2 == JAX_ITERS_ENTRY and norm == norm2
+          and bool(torch.isfinite(x).all()) and torch.equal(x, x2),
+          f"flagship: {iters}/{iters2} iterations, norms {norm}/{norm2}")
+    check(abs(norm - JAX_NORM_ENTRY) <= 1e-3 * JAX_NORM_ENTRY,
+          f"flagship: norm {norm} against the JAX entry's {JAX_NORM_ENTRY}")
+
+
+def phase_profile_solve(report):
+    """``tools/profile_solve.py`` on examples/ex3.yml (GMRES + MGR): the
+    stats table, each phase's wall, device time and busy share, the
+    device loop's replays, and a Chrome trace under build/."""
+    import contextlib
+    import io
+
+    from hypredrive_tpu_torch.tools import profile_solve
+
+    buf = io.StringIO()
+    trace = os.path.join("build", "profile_solve_ex3.json")
+    with contextlib.redirect_stdout(buf):
+        rc = profile_solve.main([os.path.join("examples", "ex3.yml"),
+                                 "--trace", trace])
+    lines = [ln for ln in buf.getvalue().splitlines()
+             if ln.startswith(("converged=", "solve", "precon_setup",
+                               "linear_system_build"))]
+    report["profile_solve"] = lines
+    print("\n".join(lines))
+    check(rc == 0 and any(f"converged=True iters={GOLDEN_EX3_ITERS}" in ln
+                          for ln in lines) and os.path.getsize(trace) > 0,
+          f"profile_solve: rc {rc}, {lines[:1]}")
 
 
 def phase_profile_setup(report):
@@ -2423,6 +2681,146 @@ def phase_bindings(report):
     report["bindings"] = bindings.run()
 
 
+# the paths whose device-loop figures PERF.md keeps (device_loop_check)
+LOOP_KEYS = ("bench64", "lap64", "lap128_f64", "mgr_64", "elasticity_rbm",
+             "ams_maxwell64", "dist_mgr64")
+# H100 SXM peaks outside the tensor cores (NVIDIA data sheet): FP32 67,
+# FP64 34 TFLOP/s
+PEAK_FLOP_S = {"float32": 67e12, "float64": 34e12}
+
+
+def krylov_small_rows(m=30):
+    """givens_update at GMRES(m)'s last step j = m − 1 and
+    hessenberg_backsolve of the whole m × m system, float32 and float64:
+    the kernel against its plain version on the same inputs (a cycle's
+    state built by the plain version from seeded columns, then copied),
+    bit for bit; device ms by graph replay, plain ms on the card, the
+    bound (bytes over 3.35 TB/s, operations over the FP32/FP64 peak) and
+    ``torch.linalg.solve_triangular`` as the back-substitution's library
+    call."""
+    import numpy as np
+    import torch
+    from hypredrive_tpu_torch.ops.krylov_small import (
+        givens_update, givens_update_plain, hessenberg_backsolve,
+        hessenberg_backsolve_plain)
+
+    rows = []
+    rng = np.random.default_rng(30)
+    for dt in (torch.float32, torch.float64):
+        dtn = str(dt).replace("torch.", "")
+        size = dt.itemsize
+        st = dict(H=torch.zeros((m + 1, m), dtype=dt),
+                  cs=torch.zeros(m, dtype=dt), sn=torch.zeros(m, dtype=dt),
+                  g=torch.zeros(m + 1, dtype=dt),
+                  norm=torch.zeros((), dtype=dt),
+                  thr=torch.tensor(1e-30, dtype=dt),
+                  done=torch.zeros((), dtype=torch.bool),
+                  hist=torch.zeros(m + 1, dtype=dt),
+                  base=torch.zeros((), dtype=torch.int64),
+                  on=torch.ones((), dtype=torch.bool),
+                  y=torch.zeros(m, dtype=dt),
+                  count=torch.full((), m, dtype=torch.int64))
+        st["g"][0] = 1.0
+        cols = [torch.tensor(rng.standard_normal(j + 2), dtype=dt)
+                for j in range(m)]
+        for j in range(m - 1):
+            givens_update_plain(st["H"], st["cs"], st["sn"], st["g"],
+                                cols[j], j, st["on"], st["norm"], st["thr"],
+                                st["done"], st["hist"], st["base"])
+        col = cols[m - 1].cuda()
+        j = m - 1
+
+        def copy():
+            return {k: v.cuda().clone() for k, v in st.items()}
+
+        def g_args(c):
+            return (c["H"], c["cs"], c["sn"], c["g"], col, j, c["on"],
+                    c["norm"], c["thr"], c["done"], c["hist"], c["base"])
+
+        ck, cp = copy(), copy()
+        givens_update(*g_args(ck))
+        givens_update_plain(*g_args(cp))
+        hessenberg_backsolve(ck["H"], ck["g"], ck["y"], ck["count"],
+                             ck["on"])
+        hessenberg_backsolve_plain(cp["H"], cp["g"], cp["y"], cp["count"],
+                                   cp["on"])
+        torch.cuda.synchronize()
+        keys = {"givens_update": ("H", "cs", "sn", "g", "norm", "done",
+                                  "hist"),
+                "hessenberg_backsolve": ("y",)}
+        for name, kk in keys.items():
+            err = max(float((ck[k].double() - cp[k].double()).abs().max())
+                      for k in kk)
+            same = all(torch.equal(ck[k], cp[k]) for k in kk)
+            c1, c2 = copy(), copy()
+            if name == "givens_update":
+                run = lambda c=c1: givens_update(*g_args(c))          # noqa
+                plain = lambda c=c2: givens_update_plain(*g_args(c))  # noqa
+                nbytes = (4 * j + 12) * size
+                flops = 6 * j + 11
+                library = None
+                shape = f"GMRES({m}) j={j}"
+            else:
+                run = lambda c=c1: hessenberg_backsolve(           # noqa
+                    c["H"], c["g"], c["y"], c["count"], c["on"])
+                plain = lambda c=c2: hessenberg_backsolve_plain(   # noqa
+                    c["H"], c["g"], c["y"], c["count"], c["on"])
+                nbytes = (m * (m + 1) // 2 + 2 * m) * size + 8
+                flops = m * (m - 1) + 2 * m
+                U = torch.triu(c1["H"][:m, :m]).contiguous()
+                rhs = c1["g"][:m, None].contiguous()
+                library = lambda: torch.linalg.solve_triangular(   # noqa
+                    U, rhs, upper=True)
+                shape = f"GMRES({m}) {m}x{m}"
+            t_bytes = nbytes / (HBM_TB_S * 1e12) * 1e3
+            t_ops = flops / PEAK_FLOP_S[dtn] * 1e3
+            row = {"kernel": name, "shape": shape, "dtype": dtn,
+                   "max_abs_err": err, "max_rel_err": err,
+                   "bit_identical": same, "bytes": nbytes, "flops": flops,
+                   "ms": time_ms(run), "device_ms": replay_ms(run),
+                   "plain_ms": time_ms(plain, reps=20),
+                   "plain_device_ms": device_ms(plain, reps=10),
+                   "bound_ms": max(t_bytes, t_ops),
+                   "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                   "library_ms": (replay_ms(library) if library else None)}
+            row["bound_share"] = row["bound_ms"] / row["device_ms"]
+            row["tb_s"] = nbytes / (row["device_ms"] * 1e-3) / 1e12
+            rows.append(row)
+            lib_txt = ("n/a" if row["library_ms"] is None
+                       else f"{row['library_ms']:.4f}")
+            print(f"  {name:20s} {shape:18s} {dtn:8s} bit-identical {same} "
+                  f"(max abs {err:.3e}); device {row['device_ms']:.5f} ms, "
+                  f"events {row['ms']:.5f} ms, plain {row['plain_ms']:.4f} "
+                  f"ms (device {row['plain_device_ms']:.4f}), library "
+                  f"{lib_txt} ms, bound {row['bound_ms']:.2e} ms "
+                  f"({row['bound_by']})")
+            check(same, f"{name} {shape} {dtn}: differs from its plain "
+                        f"version by {err:.3e}")
+    return rows
+
+
+def phase_device_loop(report):
+    """The device loop's figures on the paths of LOOP_KEYS (each checked
+    against the eager body where it ran), and the Givens and back-
+    substitution kernels against their plain versions."""
+    loops = report.get("device_loop", {})
+    missing = [k for k in LOOP_KEYS if k not in loops]
+    check(not missing, f"device loop: no figures for {missing}")
+    for k in LOOP_KEYS:
+        d = loops[k]
+        print(f"  {k:15s} first {d['first_solve_s']:.4f} s (capture "
+              f"{d['capture_s']:.4f} s), warm {d['warm_solve_s']:.5f} s, "
+              f"device {d['device_s']:.5f} s, busy {100 * d['busy']:.1f}%, "
+              f"eager body {d['eager_solve_s']:.4f} s; {d['iters']} "
+              f"iterations, {d['replays_per_solve']} replays "
+              f"({d['masked_replays_per_solve']} masked), "
+              f"{d['host_reads_per_solve']} host reads, {d['graphs']} "
+              f"graphs, {d['graph_nodes']} nodes (largest "
+              f"{d['largest_graph_nodes']}), first solve's peak "
+              f"{d['peak_allocated_bytes'] / 2**20:.1f} MiB")
+    report["kernel_checks"].extend(krylov_small_rows())
+
+
 KERNELS = {
     "dia_spmv": ("hypredrive_tpu_torch/csrc/dia_spmv.cu",
                  "hypredrive_tpu/ops/pallas_dia.py:99 (K1); "
@@ -2430,52 +2828,63 @@ KERNELS = {
     "csr_spmv": ("hypredrive_tpu_torch/csrc/csr_spmv.cu",
                  "hypredrive_tpu/ops/pallas_spmv.py:85 (K3); "
                  "hypredrive_tpu/ops/pallas_spmv.py:216 (K4)"),
+    # not TPU kernels: the device form of XLA code in the jitted loop
+    "givens_update": ("hypredrive_tpu_torch/csrc/krylov_small.cu",
+                      "none (XLA code): hypredrive_tpu/solvers/gmres.py:107 "
+                      "rot_step fori_loop and the rotation after it"),
+    "hessenberg_backsolve": ("hypredrive_tpu_torch/csrc/krylov_small.cu",
+                             "none (XLA code): hypredrive_tpu/solvers/"
+                             "gmres.py:133 back_sub fori_loop"),
 }
 
 
 def launch_counters():
     """The wrappers whose ``launches`` count kernel launches."""
-    from hypredrive_tpu_torch.ops.csr_spmv import csr_spmv
-    from hypredrive_tpu_torch.ops.dia_spmv import dia_spmv
+    from hypredrive_tpu_torch.solvers.device_loop import counted
 
-    return {"dia_spmv": dia_spmv, "csr_spmv": csr_spmv}
+    return {f.__name__: f for f in counted()}
 
 
 # the solve paths: (name, phase, kernels each must launch); ex1-jacobi is
-# a 7-point Laplacian without AMG, all on diagonals
+# a 7-point Laplacian without AMG, all on diagonals; the GMRES and FGMRES
+# paths also launch the Givens and back-substitution kernels
 BOTH = ("dia_spmv", "csr_spmv")
+ARNOLDI = BOTH + ("givens_update", "hessenberg_backsolve")
 PATHS = (("ex1", phase_ex1, BOTH), ("lap64", phase_64, BOTH),
-         ("lap128", phase_128, BOTH), ("mgr_ex3", phase_mgr_ex3, BOTH),
-         ("mgr_ex5", phase_mgr_ex5, BOTH),
+         ("lap128", phase_128, BOTH), ("mgr_ex3", phase_mgr_ex3, ARNOLDI),
+         ("mgr_ex5", phase_mgr_ex5, ARNOLDI),
          ("jacobi_ex1", phase_jacobi_ex1, ("dia_spmv",)),
-         ("mgr_64", phase_mgr64, BOTH),
-         ("krylov_variants", phase_krylov_variants, BOTH),
-         ("mgr_ex4", phase_mgr_ex4, BOTH), ("seq_ex7", phase_seq_ex7, BOTH),
-         ("seq_ex7_reuse", phase_seq_ex7_reuse, BOTH),
-         ("seq_ex7_frelax_reuse", phase_seq_ex7_frelax_reuse, BOTH),
+         ("mgr_64", phase_mgr64, ARNOLDI),
+         ("krylov_variants", phase_krylov_variants, ARNOLDI),
+         ("mgr_ex4", phase_mgr_ex4, ARNOLDI),
+         ("seq_ex7", phase_seq_ex7, ARNOLDI),
+         ("seq_ex7_reuse", phase_seq_ex7_reuse, ARNOLDI),
+         ("seq_ex7_frelax_reuse", phase_seq_ex7_frelax_reuse, ARNOLDI),
          ("amg_gs_fsai", phase_amg_gs_fsai, BOTH),
-         ("ilu_variants", phase_ilu_variants, BOTH),
-         ("seq_64", phase_seq64, BOTH),
+         ("ilu_variants", phase_ilu_variants, ARNOLDI),
+         ("seq_64", phase_seq64, ARNOLDI),
          ("elasticity_rbm", phase_elasticity, BOTH),
-         ("convdif_air", phase_convdif, BOTH),
+         ("convdif_air", phase_convdif, ARNOLDI),
          ("lap128_agg_cf", phase_lap128_agg_cf, BOTH),
          ("ex6_eigspec", phase_ex6, BOTH),
          ("ex9_print_system", phase_ex9, BOTH),
-         ("lsseq_ex7", phase_lsseq_ex7, BOTH),
-         ("scaling_xref", phase_scaling_xref, BOTH),
+         ("lsseq_ex7", phase_lsseq_ex7, ARNOLDI),
+         ("scaling_xref", phase_scaling_xref, ARNOLDI),
          ("ams_maxwell64", phase_ams64, BOTH),
          ("ads_graddiv48", phase_ads48, BOTH),
          ("ams_cycles", phase_ams_cycles, BOTH),
          ("laplacian_driver", phase_laplacian_driver, BOTH),
          ("capi", phase_capi, BOTH),
-         ("dist_dryrun8", phase_dist_dryrun8, BOTH),
+         ("dist_dryrun8", phase_dist_dryrun8, ARNOLDI),
          ("dist_lap128", phase_dist_lap128, BOTH),
-         ("dist_mgr64", phase_dist_mgr64, BOTH),
+         ("dist_mgr64", phase_dist_mgr64, ARNOLDI),
          ("dist_ams32", phase_dist_ams32, BOTH),
          ("bench", phase_bench, BOTH),
+         ("flagship", phase_flagship, BOTH),
+         ("profile_solve", phase_profile_solve, ARNOLDI),
          ("profile_setup", phase_profile_setup, BOTH),
          ("node_scaling", phase_node_scaling, BOTH),
-         ("parity_report", phase_parity_report, BOTH),
+         ("parity_report", phase_parity_report, ARNOLDI),
          ("bindings", phase_bindings, BOTH))
 
 
@@ -2544,6 +2953,10 @@ def main() -> int:
                 run(name, fn)
             else:
                 failures.append(f"{name}: no operators to check")
+        if "kernel_checks" in report:
+            run("device_loop", phase_device_loop)
+        else:
+            failures.append("device_loop: no kernel table to add to")
     report["total_s"] = time.perf_counter() - t_start
     print(f"total: {report['total_s']:.3f} s")
     report["failures"] = failures
@@ -2568,7 +2981,8 @@ def main() -> int:
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "max_rel_err": max(r["max_rel_err"] for r in rows),
             "ms": main_row["device_ms"], "plain_ms": main_row["plain_device_ms"],
-            "bound_ms": main_row["bound_ms"], "bound_by": "bytes",
+            "bound_ms": main_row["bound_ms"],
+            "bound_by": main_row.get("bound_by", "bytes"),
             "library_ms": main_row["library_ms"],
             "shape": f"{main_row['shape']} {main_row['dtype']}",
             "launches_warm_lap128_solve": warm[name],

@@ -190,9 +190,9 @@ class HypreDrive:
         self.current_system_index += 1
         if system_index is not None:
             self.current_system_index = system_index
-        self.system = LinearSystem.build(
+        self._replace_system(LinearSystem.build(
             self.args, self.current_system_index, stats=self.stats,
-            previous=self.system)
+            previous=self.system))
         if self.args.general.statistics:
             log(1, f"Solving linear system #{self.current_system_index} "
                    f"with {self.system.num_rows} rows and "
@@ -209,9 +209,19 @@ class HypreDrive:
         from .linsys.system import LinearSystem
 
         self.current_system_index += 1
-        self.system = LinearSystem.from_csr(
-            self.args, indptr, indices, data, stats=self.stats)
+        self._replace_system(LinearSystem.from_csr(
+            self.args, indptr, indices, data, stats=self.stats))
         return self.system
+
+    def _replace_system(self, system):
+        """Install a new system; the solver graphs captured on the old
+        operator go with it (``solvers/device_loop.py``)."""
+        from .solvers import device_loop
+
+        old = self.system
+        if old is not None and old.A is not system.A:
+            device_loop.release(old.A)
+        self.system = system
 
     def set_rhs(self, values):
         self._require_system().set_rhs_array(np.asarray(values))
@@ -470,10 +480,13 @@ class HypreDrive:
                 and self._reuse_state.should_keep(self.current_system_index,
                                                   self.stats))
         if not keep:
+            from .solvers import device_loop
+
             cache = getattr(self.precon, "_component_cache", None)
             if cache:
                 self._mgr_component_cache = cache
                 self._mgr_setup_count = self.precon._setup_count
+            device_loop.release(self.precon)
             self.precon = None
             self._precon_is_setup = False
 
@@ -613,6 +626,10 @@ class HypreDrive:
                 and self.args.general.statistics and self.stats.entries
                 and not self._stats_printed):
             self.stats_print()
+        from .solvers import device_loop
+
+        device_loop.release(self.precon,
+                            self.system.A if self.system else None)
         self.system = None
         self.precon = None
         self.solver = None

@@ -39,6 +39,7 @@ import torch
 
 from .core.entry import (add_exec_policy, card, device, profiled_device_s,
                          replay_ms, synchronize)
+from .solvers import device_loop
 
 EX1_REF_ITERS = 6       # hypre on ex1 (examples/refOutput/ex1.txt)
 STREAM_ELEMS = 1 << 27  # two float32 arrays of 512 MiB each: past any L2
@@ -165,7 +166,9 @@ def run(nx: int = 64, policy: str = "device",
                         20)
     cyc_nnz = cycle_nnz(state)
 
-    # ---- PCG + AMG to 1e-8 (warm wall; device time from the profiler) ----
+    # ---- PCG + AMG to 1e-8 through the device loop: the first solve
+    # captures its graphs; the warm one replays them (warm wall; device
+    # time from the profiler) ---------------------------------------------
     b = torch.ones(n, dtype=dtype, device=dev)
     x0 = torch.zeros(n, dtype=dtype, device=dev)
 
@@ -173,12 +176,19 @@ def run(nx: int = 64, policy: str = "device",
         return pcg_core(A.matvec, lambda r: amg_apply(state, r), b, x0,
                         1e-8, 0.0, 100, True, 0)
 
+    synchronize(dev)
+    device_loop.reset_stats()
+    t0 = time.perf_counter()
     solve()
     synchronize(dev)
+    first_s = time.perf_counter() - t0
+    first = dict(device_loop.stats)
+    device_loop.reset_stats()
     t0 = time.perf_counter()
     out = solve()
     synchronize(dev)
     solve_s = time.perf_counter() - t0
+    warm = dict(device_loop.stats)
     iters = int(out[1])
     solve_dev_s = profiled_device_s(solve) if dev.type == "cuda" else None
 
@@ -211,13 +221,19 @@ def run(nx: int = 64, policy: str = "device",
                                     "(bench.py:178-183)",
             "stream_triad_gbs": "the same over 20 reps of w = v + 2w, "
                                 f"{stream_elems} float32 each",
-            "pcg_amg_solve_s": "host wall of the warm solve, ending in "
-                               "torch.cuda.synchronize()",
+            "pcg_amg_solve_s": "host wall of the warm solve (graph "
+                               "replays), ending in torch.cuda.synchronize()",
+            "pcg_amg_first_solve_s": "host wall of the first solve: "
+                                     "warm-up, capture and replays",
+            "capture_s": "host wall of the first solve's warm-up and "
+                         "capture of its graphs",
+            "graph_nodes": "nodes of the captured graphs (cudaGraphGetNodes)",
+            "pcg_amg_solve_busy": "pcg_amg_solve_device_s over "
+                                  "pcg_amg_solve_s",
             "pcg_amg_solve_device_s": "summed device time of that solve's "
-                                      "kernels (torch.profiler device "
-                                      "events); bench.py slope-times whole "
-                                      "on-device solves, which this "
-                                      "host-driven loop cannot",
+                                      "kernels, those of its graph replays "
+                                      "included (torch.profiler device "
+                                      "events)",
             "amg_setup_s": "host wall, median of 3 warm passes, ending in "
                            "a synchronise",
             "backend_init_s": "host wall of each step of the bring-up",
@@ -242,6 +258,17 @@ def run(nx: int = 64, policy: str = "device",
             "pcg_amg_iters_to_1e-8": iters,
             "pcg_amg_solve_s": solve_s,
             "pcg_amg_solve_device_s": solve_dev_s,
+            "pcg_amg_solve_busy": (solve_dev_s / solve_s
+                                   if solve_dev_s is not None else None),
+            "pcg_amg_first_solve_s": first_s,
+            "solve_mode": "graph" if warm["graph_solves"] else "eager",
+            "capture_s": first["capture_s"],
+            "graph_nodes": {"total": first["nodes"],
+                            "largest": first["max_nodes"],
+                            "graphs": first["graphs"]},
+            "replays_per_solve": warm["replays"],
+            "masked_replays_per_solve": warm["masked"],
+            "host_reads_per_solve": warm["host_reads"],
             "amg_setup_s": setup_s,
             "amg_setup_passes_s": setup_passes,
             "amg_setup_cold_s": setup_cold_s,

@@ -27,6 +27,9 @@ BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build",
                           "hypredrive_tpu_torch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
+# flags of one source only: the Krylov steps keep the plain versions'
+# rounding (no product fused into an add)
+SOURCE_FLAGS = {"krylov_small.cu": ("-fmad=false",)}
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -53,6 +56,7 @@ def build() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for p in srcs:
         h.update(os.path.basename(p).encode())
+        h.update(" ".join(SOURCE_FLAGS.get(os.path.basename(p), ())).encode())
         with open(p, "rb") as f:
             h.update(f.read())
     out_dir = os.path.join(BUILD_ROOT, "cuda-" + h.hexdigest()[:16])
@@ -67,7 +71,9 @@ def build() -> str:
     tmp = f"{so}.{os.getpid()}.tmp"
     compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
     objs = [f"{tmp}.{i}.o" for i in range(len(srcs))]
-    procs = [subprocess.Popen([nvcc, *compile_flags, "-c", "-o", obj, src],
+    procs = [subprocess.Popen([nvcc, *compile_flags,
+                               *SOURCE_FLAGS.get(os.path.basename(src), ()),
+                               "-c", "-o", obj, src],
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                               text=True)
              for obj, src in zip(objs, srcs)]
@@ -104,6 +110,15 @@ def lib() -> ctypes.CDLL:
                 fn = getattr(cdll, f"hdtt_csr_spmv_{suffix}")
                 fn.restype = ctypes.c_int
                 fn.argtypes = [vp, vp, vp, vp, vp, i64, vp, i64, i32, vp]
+                fn = getattr(cdll, f"hdtt_givens_update_{suffix}")
+                fn.restype = ctypes.c_int
+                fn.argtypes = [vp, vp, vp, vp, vp, i32, i32, vp, vp, vp, vp,
+                               vp, vp, i64, vp]
+                fn = getattr(cdll, f"hdtt_hessenberg_backsolve_{suffix}")
+                fn.restype = ctypes.c_int
+                fn.argtypes = [vp, vp, vp, i32, vp, vp, vp]
+            cdll.hdtt_graph_nodes.restype = ctypes.c_int
+            cdll.hdtt_graph_nodes.argtypes = [vp, ctypes.POINTER(i64)]
             _lib = cdll
         return _lib
 

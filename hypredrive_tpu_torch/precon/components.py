@@ -243,7 +243,9 @@ def _krylov_state(A_host, args, dtype, dofmap, device):
 
 def _krylov_apply(state: KrylovComponent, r):
     """The solver cores with plain callables, from x0 = 0 (absolute
-    tolerance 0, GMRES trusting its inner estimate)."""
+    tolerance 0, GMRES trusting its inner estimate), unrolled to their
+    fixed budget with the device loop's masks and no host read, so that
+    the component runs inside the outer solve's captured graphs."""
     from ..solvers.bicgstab import bicgstab_core
     from ..solvers.fgmres import fgmres_core
     from ..solvers.gmres import gmres_core
@@ -258,13 +260,14 @@ def _krylov_apply(state: KrylovComponent, r):
     m = state.method
     if m == "pcg":
         x, *_ = pcg_core(mv, pc, r, x0, state.rtol, 0.0, state.max_iter,
-                         True, 0)
+                         True, 0, unroll=True)
     elif m == "bicgstab":
-        x, *_ = bicgstab_core(mv, pc, r, x0, state.rtol, 0.0, state.max_iter)
+        x, *_ = bicgstab_core(mv, pc, r, x0, state.rtol, 0.0, state.max_iter,
+                              unroll=True)
     elif m == "fgmres":
         x, *_ = fgmres_core(mv, pc, r, x0, state.rtol, 0.0, state.max_iter,
-                            state.krylov_dim)
+                            state.krylov_dim, unroll=True)
     else:
         x, *_ = gmres_core(mv, pc, r, x0, state.rtol, 0.0, state.max_iter,
-                           state.krylov_dim, True)
+                           state.krylov_dim, True, unroll=True)
     return x

@@ -200,8 +200,9 @@ def _schur_apply(state: SchurILUState, r):
     z0 = b_inv(r.index_select(0, state.int_idx))
     rs = r.index_select(0, state.if_idx) - state.E.matvec(z0)
     m = state.schur_max_iter
+    # one unrolled cycle of m steps (rtol 0), inside the outer graphs
     z_if, *_ = gmres_core(s_mv, c_inv, rs, torch.zeros_like(rs), 0.0, 0.0,
-                          m, m, True)
+                          m, m, True, unroll=True)
     z_int = z0 - b_inv(state.F.matvec(z_if))
     z = torch.zeros_like(r)
     z.index_copy_(0, state.int_idx, z_int)

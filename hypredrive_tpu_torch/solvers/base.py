@@ -3,7 +3,10 @@
 Mirrors the reference solver layer semantics (ref: src/internal/solver.c):
 ``Solver.apply`` computes *untimed* true residual norms before and after
 the timed solve (ref: solver.c:627-699); the stats table's "initial" and
-"relative" residual norms come from there.
+"relative" residual norms come from there.  The timed solve runs the
+core through the device loop (``device_loop.py``): on a card the first
+solve with an operator and preconditioner includes capturing its graphs,
+as the JAX package's first solve includes compiling its core.
 """
 
 from __future__ import annotations
@@ -40,6 +43,11 @@ class SolveResult:
     error_norm: Optional[float] = None
 
 
+def identity(r: torch.Tensor) -> torch.Tensor:
+    """No preconditioner."""
+    return r
+
+
 def _sync(t: torch.Tensor) -> None:
     """Wait for the device (the timed region ends on finished work)."""
     if t.device.type == "cuda":
@@ -62,8 +70,10 @@ class Solver:
         self._system = system
         self._precon = precon
 
-    def precon_apply(self, r: torch.Tensor) -> torch.Tensor:
-        return self._precon.apply(r) if self._precon is not None else r
+    def precon_fn(self):
+        """The preconditioner's apply (the identity without one): the
+        callable whose identity keys the device loop's graphs."""
+        return self._precon.apply if self._precon is not None else identity
 
     def apply(self, system, precon=None, stats=None) -> SolveResult:
         """Run the solve with untimed true-residual bookkeeping

@@ -1,4 +1,5 @@
-"""Restarted GMRES(m), left-preconditioned (hypre convention).
+"""Restarted GMRES(m), left-preconditioned (hypre convention), and the
+restarted Arnoldi loop it shares with FGMRES.
 
 Counterpart of ``hypredrive_tpu/solvers/gmres.py::_gmres_core``, with the
 same option surface (ref: src/internal/gmres.c:16-27) and the same
@@ -6,183 +7,235 @@ stopping contract: the inner test runs on the rotation-estimated
 preconditioned residual against the cycle-start β scaled by the factor the
 true residual still needs; the outer check recomputes the true residual
 unless ``skip_real_res_check``; a cycle that makes no step ends the solve.
+A cycle runs to m steps or inner convergence even when that passes
+``max_iter``, as the JAX package's inner ``while_loop`` does; history
+entries past ``max_iter`` are dropped.
 
-The basis V, the matvecs, the preconditioner and the modified Gram-Schmidt
-dots stay on the device.  The Hessenberg column (its j+1 dots and
-h_{j+1,j}) comes to the host in one read per inner iteration; the Givens
-rotations and the back-substitution run there in the solve's dtype, so a
-float32 solve rotates in float32 as the JAX package does.
+The loop runs on the device (``device_loop.py``) as four kinds of body:
+the solve's start, a cycle's start, inner step j (one body per j, so each
+knows its basis length) and a cycle's end.  On a card each is one CUDA
+graph: one replay per inner step, one for each cycle's start and end.
+Modified Gram-Schmidt stays on the device; the Givens update and the
+back-substitution are two small CUDA kernels (``ops/krylov_small.py``),
+in the solve's dtype.
 
-With a reference solution set (``xref``), every inner iteration also
-rebuilds its iterate (the host back-substitution and one combination of
-the basis on the device) and records the error norm ‖x_k − xref‖ of each
-dof block, the blocks being the dofmap's labels (one block without a
-dofmap): the JAX package's tagged histories (ref:
-hypredrv_GMRESSetRefSolution, src/internal/gmres.c:80-103).
+With a reference solution set (``xref``), every inner step also rebuilds
+its iterate (the back-substitution and one combination of the basis) and
+records the error norm ‖x_k − xref‖ of each dof block, the blocks being
+the dofmap's labels (one block without a dofmap): the JAX package's
+tagged histories (ref: hypredrv_GMRESSetRefSolution,
+src/internal/gmres.c:80-103).
 """
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
+from ..ops.krylov_small import givens_update, hessenberg_backsolve
 from ..ops.vectors import dot, norm2
+from . import device_loop as dl
 from .base import Solver
 
 
-def host_dtype(t: torch.Tensor):
-    """The numpy scalar type of a tensor's dtype (float32 or float64)."""
-    return np.float32 if t.dtype == torch.float32 else np.float64
+def device_threshold(b_norm, r0_norm, rtol: float, atol: float, one):
+    """max(rtol·denom, atol) in the solve's dtype on the device; denom is
+    ‖b‖, else ‖r0‖, else 1 (hypre semantics)."""
+    denom = torch.where(b_norm > 0, b_norm,
+                        torch.where(r0_norm > 0, r0_norm, one))
+    return torch.maximum(rtol * one * denom, atol * one)
 
 
-def residual_threshold(b, r0, rtol, atol, hdt):
-    """(‖r0‖, max(rtol·denom, atol)) on the host in the solve's dtype;
-    denom is ‖b‖, else ‖r0‖, else 1 (hypre semantics).  One device read."""
-    b_norm, r0_norm = (hdt(v) for v in
-                       torch.stack([norm2(b), norm2(r0)]).tolist())
-    one = hdt(1.0)
-    denom = b_norm if b_norm > 0 else (r0_norm if r0_norm > 0 else one)
-    return r0_norm, max(hdt(rtol) * denom, hdt(atol))
-
-
-def mgs_column(V, w, j):
-    """Modified Gram-Schmidt of w against V[0..j] on the device, w/‖w‖
-    into V[j+1]; returns the host column [h_0j .. h_jj, h_{j+1,j}], read
-    from the device at once."""
-    hs = []
-    for i in range(j + 1):
-        h = dot(V[i], w)
-        w = torch.addcmul(w, V[i], h, value=-1.0)
-        hs.append(h)
-    h_next = norm2(w)
-    hs.append(h_next)
-    col = torch.stack(hs).cpu().numpy()
-    # normalise into V[j+1] with the device copy of h_{j+1,j}
-    if col[-1] > 0:
-        torch.div(w, h_next, out=V[j + 1])
-    else:
-        V[j + 1].copy_(w)
-    return col
-
-
-def givens_step(H, cs, sn, g, j):
-    """Apply the previous rotations to column j of H, make the one that
-    zeroes H[j+1, j], rotate g; returns |g[j+1]| (the residual estimate).
-    Host arithmetic in H's dtype."""
-    for i in range(j):
-        t = cs[i] * H[i, j] + sn[i] * H[i + 1, j]
-        H[i + 1, j] = -sn[i] * H[i, j] + cs[i] * H[i + 1, j]
-        H[i, j] = t
-    d = np.sqrt(H[j, j] ** 2 + H[j + 1, j] ** 2)
-    c_new = H[j, j] / d if d > 0 else H.dtype.type(1.0)
-    s_new = H[j + 1, j] / d if d > 0 else H.dtype.type(0.0)
-    H[j, j] = c_new * H[j, j] + s_new * H[j + 1, j]
-    H[j + 1, j] = 0.0
-    cs[j], sn[j] = c_new, s_new
-    g[j + 1] = -s_new * g[j]
-    g[j] = c_new * g[j]
-    return abs(g[j + 1])
-
-
-def back_substitute(H, g, j):
-    """y solving the leading j×j upper-triangular system H y = g (zero
-    where H[k, k] == 0), in H's dtype."""
-    m = H.shape[1]
-    y = np.zeros(m, H.dtype)
-    for k in range(j - 1, -1, -1):
-        if H[k, k] != 0:
-            y[k] = (g[k] - np.dot(H[k, :], y)) / H[k, k]
-    return y
-
-
-def combine(y, basis, j):
-    """Σ_{k<j} y_k basis_k on the device."""
-    if j == 0:
-        return torch.zeros_like(basis[0])
-    yt = torch.as_tensor(y[:j], dtype=basis.dtype, device=basis.device)
-    return torch.matmul(yt, basis[:j])
-
-
-def block_errors(x, xref, tags, num_tags):
-    """‖x − xref‖ per tag on the host: a segment sum of squares on the
-    device, read back at once."""
+def block_errors(x, xref, tags, num_tags: int):
+    """‖x − xref‖ per tag: a segment sum of squares on the device."""
     e = x - xref
     ss = torch.zeros(num_tags, dtype=x.dtype, device=x.device)
     ss.index_add_(0, tags, e * e)
-    return torch.sqrt(ss).cpu().numpy()
+    return torch.sqrt(ss)
+
+
+def arnoldi_core(matvec, precon, b, x0, rtol: float, atol: float,
+                 max_iter: int, m: int, *, flexible: bool,
+                 skip_real_res_check: bool = False, xref=None, tags=None,
+                 num_tags: int = 0, unroll: bool = False):
+    """Restarted GMRES (``flexible`` False: left-preconditioned, inner
+    test against the factor-scaled β) or FGMRES (True: right-
+    preconditioned with the Z basis, inner test against the threshold).
+    Returns (x, iters, final norm, converged, history, error history or
+    None); in ``unroll`` mode the whole budget runs with no host read and
+    the count, norm, flag and histories stay device tensors."""
+    n = b.shape[0]
+    tagged = num_tags > 0
+
+    def make():
+        L = dl.Loop(b)
+        L.b, L.x0, L.x = L.vec(n), L.vec(n), L.vec(n)
+        # zeroed once: a masked combination multiplies rows past j by 0
+        L.V = torch.zeros((m + 1, n), dtype=b.dtype, device=b.device)
+        L.Z = (torch.zeros((m, n), dtype=b.dtype, device=b.device)
+               if flexible else None)
+        L.H = torch.zeros((m + 1, m), dtype=b.dtype, device=b.device)
+        L.cs, L.sn, L.y, L.g = L.vec(m), L.vec(m), L.vec(m), L.vec(m + 1)
+        (L.thr, L.r_true, L.inner_thr, L.norm, L.zero) = (
+            L.scalar() for _ in range(5))
+        L.one = L.scalar(fill=1)
+        L.total, L.j = L.scalar(torch.int64), L.scalar(torch.int64)
+        L.outer_done, L.outer_stop = L.flag(), L.flag()
+        L.cyc_active, L.inner_done = L.flag(), L.flag()
+        L.hist = L.vec(max_iter + 1)
+        if tagged:
+            L.xref = L.vec(n)
+            L.tags = L.vec(n, torch.int64)
+            L.ehist = torch.zeros((max_iter + 1, num_tags), dtype=b.dtype,
+                                  device=b.device)
+
+        @L.body("solve")
+        def solve_start():
+            L.x.copy_(L.x0)
+            r0_norm = norm2(L.b - matvec(L.x))
+            L.thr.copy_(device_threshold(norm2(L.b), r0_norm, rtol, atol,
+                                         L.one))
+            L.hist.fill_(math.nan)
+            L.hist[:1].copy_(r0_norm.reshape(1))
+            if tagged:
+                L.ehist.fill_(math.nan)
+                L.ehist[0].copy_(block_errors(L.x, L.xref, L.tags,
+                                              num_tags))
+            L.total.zero_()
+            L.r_true.copy_(r0_norm)
+            L.outer_done.copy_(r0_norm <= L.thr)
+            L.outer_stop.copy_(L.outer_done | (max_iter <= 0))
+
+        @L.body("cycle")
+        def cycle_start():
+            active = ~L.outer_stop
+            r = L.b - matvec(L.x)
+            if not flexible:
+                r = precon(r)
+            beta = norm2(r)
+            if flexible:
+                inner_thr = L.thr
+            else:
+                # shrink the preconditioned estimate by the factor the
+                # TRUE residual still needs
+                factor = torch.where(L.r_true > 0, L.thr / L.r_true, L.one)
+                inner_thr = beta * torch.minimum(factor, L.one)
+            dl.keep(L.V[0], torch.where(beta > 0, r / beta, r), active)
+            for t in (L.H, L.cs, L.sn, L.g, L.j):
+                t.masked_fill_(active, 0)
+            dl.keep(L.g[0], beta, active)
+            dl.keep(L.inner_thr, inner_thr, active)
+            dl.keep(L.norm, beta, active)
+            dl.keep(L.inner_done, beta <= inner_thr, active)
+            L.cyc_active.copy_(active)
+
+        def step(j: int):
+            active = L.cyc_active & ~L.inner_done
+            if flexible:
+                z = precon(L.V[j])
+                dl.keep(L.Z[j], z, active)
+                w = matvec(z)
+            else:
+                w = precon(matvec(L.V[j]))
+            # modified Gram-Schmidt against V[0..j]
+            hs = []
+            for i in range(j + 1):
+                h = dot(L.V[i], w)
+                w = torch.addcmul(w, L.V[i], h, value=-1.0)
+                hs.append(h)
+            h_next = norm2(w)
+            hs.append(h_next)
+            dl.keep(L.V[j + 1], torch.where(h_next > 0, w / h_next, w),
+                    active)
+            givens_update(L.H, L.cs, L.sn, L.g, torch.stack(hs), j, active,
+                          L.norm, L.inner_thr, L.inner_done, L.hist, L.total)
+            L.j.add_(active.long())
+            if tagged:
+                # the current iterate from the updated Hessenberg
+                hessenberg_backsolve(L.H, L.g, L.y, L.j, active)
+                e = block_errors(L.x + torch.matmul(L.y, L.V[:m]), L.xref,
+                                 L.tags, num_tags)
+                k = L.total + L.j
+                dl.put(L.ehist, torch.clamp(k, max=max_iter), e,
+                       active & (k <= max_iter))
+
+        # step j > 0 runs step 0's operations over a longer basis
+        for j in range(m):
+            L.body(f"step{j}", warm=j == 0)(lambda j=j: step(j))
+
+        @L.body("end")
+        def cycle_end():
+            active = L.cyc_active
+            hessenberg_backsolve(L.H, L.g, L.y, L.j, active)
+            L.x.add_(torch.matmul(L.y, L.Z if flexible else L.V[:m]))
+            L.total.add_(torch.where(active, L.j, 0))
+            if skip_real_res_check:
+                # trust the inner estimate (ref: hypre skip_real_r_norm_check)
+                norm, done = L.norm, L.inner_done
+            else:
+                # real-residual check in TRUE units (ref: hypre GMRES
+                # "false convergence" guard)
+                norm = norm2(L.b - matvec(L.x))
+                done = norm <= L.thr
+            # no progress this cycle → breakdown, stop
+            dl.keep(L.r_true, norm, active)
+            dl.keep(L.outer_done, done | (L.j == 0), active)
+            L.outer_stop.copy_(L.outer_done | (L.total >= max_iter))
+        return L
+
+    # every cycle but the last makes m steps in an unrolled solve: a
+    # shorter one converged, which ends a solve that trusts its inner
+    # estimate (the nested callers); otherwise each cycle makes one step
+    # at least, so max_iter cycles bound the solve
+    cycles = -(-max_iter // m) if unroll else max_iter
+
+    def schedule(R, L):
+        R.go("solve")
+        R.mark(L.outer_stop)
+        for _ in range(cycles):
+            R.go("cycle")
+            R.mark(L.inner_done)
+            if R.stopped():
+                break
+            for j in range(m):
+                R.go(f"step{j}")
+                if j + 1 < m:
+                    R.mark(L.inner_done)
+                if R.stopped():
+                    break
+            R.go("end")
+            R.mark(L.outer_stop)
+
+    key = ("fgmres" if flexible else "gmres", float(rtol), float(atol),
+           int(max_iter), int(m), bool(skip_real_res_check), num_tags,
+           b.dtype, n)
+    inputs = {"b": b, "x0": x0}
+    if tagged:
+        inputs.update(xref=xref, tags=tags)
+    L, mode = dl.run(key, (matvec, precon), make, inputs, schedule, unroll)
+    arrays = [L.hist] + ([L.ehist] if tagged else [])
+    x, hists, (total, norm, done) = dl.read_out(
+        L.x, arrays, [L.total, L.r_true, L.outer_done], mode)
+    ehist = hists[1] if tagged else None
+    if mode == "unroll":
+        return x, total, norm, done, hists[0], ehist
+    return x, int(total), norm, bool(done), hists[0], ehist
 
 
 def gmres_core(matvec, precon, b, x0, rtol: float, atol: float,
                max_iter: int = 300, m: int = 30,
                skip_real_res_check: bool = False, xref=None, tags=None,
-               num_tags: int = 0):
+               num_tags: int = 0, *, unroll: bool = False):
     """(x, iters, final norm, converged, history of max_iter+1 norms, NaN
     past the last iteration, per-block error history): the last is the
     (max_iter+1, num_tags) error history against ``xref`` (int64 ``tags``
     per row) with ``num_tags`` > 0, else None."""
-    hdt = host_dtype(b)
-    n = b.shape[0]
-    # hypre convention: the convergence contract is on the TRUE residual;
-    # the inner Givens estimate tracks the PRECONDITIONED residual, so each
-    # cycle converts the remaining true-residual reduction into
-    # preconditioned units via the cycle-start ratio
-    r0_norm, threshold = residual_threshold(b, b - matvec(x0), rtol, atol,
-                                            hdt)
-    history = np.full(max_iter + 1, np.nan)
-    history[0] = r0_norm
-    ehist = None
-    if num_tags > 0:
-        ehist = np.full((max_iter + 1, num_tags), np.nan)
-        ehist[0] = block_errors(x0, xref, tags, num_tags)
-    V = torch.empty((m + 1, n), dtype=b.dtype, device=b.device)
-
-    def cycle(x, total, r_true_norm):
-        r = precon(b - matvec(x))
-        beta_t = norm2(r)
-        beta = hdt(beta_t.item())
-        factor = threshold / r_true_norm if r_true_norm > 0 else hdt(1.0)
-        inner_threshold = beta * min(factor, hdt(1.0))
-        if beta > 0:
-            torch.div(r, beta_t, out=V[0])
-        else:
-            V[0].copy_(r)
-        H = np.zeros((m + 1, m), hdt)
-        cs, sn = np.zeros(m, hdt), np.zeros(m, hdt)
-        g = np.zeros(m + 1, hdt)
-        g[0] = beta
-        j, norm, done = 0, beta, beta <= inner_threshold
-        while j < m and not done:
-            w = precon(matvec(V[j]))
-            H[:j + 2, j] = mgs_column(V, w, j)
-            norm = givens_step(H, cs, sn, g, j)
-            if total + j + 1 <= max_iter:
-                history[total + j + 1] = norm
-                if ehist is not None:
-                    # the current iterate from the updated Hessenberg
-                    y = back_substitute(H, g, j + 1)
-                    ehist[total + j + 1] = block_errors(
-                        x + combine(y, V, j + 1), xref, tags, num_tags)
-            j += 1
-            done = norm <= inner_threshold
-        y = back_substitute(H, g, j)
-        return x + combine(y, V, j), j, norm, done
-
-    x, total, norm = x0, 0, r0_norm
-    done = r0_norm <= threshold
-    while total < max_iter and not done:
-        x, j, norm_est, conv_inner = cycle(x, total, norm)
-        total += j
-        if skip_real_res_check:
-            # trust the inner estimate (ref: hypre skip_real_r_norm_check)
-            norm, done = norm_est, conv_inner
-        else:
-            # real-residual check in TRUE units (ref: hypre GMRES "false
-            # convergence" guard)
-            norm = hdt(norm2(b - matvec(x)).item())
-            done = norm <= threshold
-        # no progress this cycle → breakdown, stop
-        done = bool(done) or j == 0
-    return x, total, float(norm), bool(done), history, ehist
+    return arnoldi_core(matvec, precon, b, x0, rtol, atol, max_iter, m,
+                        flexible=False,
+                        skip_real_res_check=skip_real_res_check, xref=xref,
+                        tags=tags, num_tags=num_tags, unroll=unroll)
 
 
 class GMRESSolver(Solver):
@@ -199,7 +252,7 @@ class GMRESSolver(Solver):
             tagged = dict(xref=system.xref.to(b.dtype), num_tags=int(
                 labels.max()) + 1, tags=torch.as_tensor(
                     labels, dtype=torch.int64, device=b.device))
-        return gmres_core(A.matvec, self.precon_apply, b, x0,
+        return gmres_core(A.matvec, self.precon_fn(), b, x0,
                           float(a.relative_tol), float(a.absolute_tol),
                           int(a.max_iter), int(a.krylov_dim),
                           bool(a.get("skip_real_res_check", False)), **tagged)

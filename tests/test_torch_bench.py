@@ -34,6 +34,12 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TPU_ONLY = {"tunnel_roundtrip_ms"}
 CARD_KEYS = {"device", "power_limit", "nvidia_smi", "operand_bytes",
              "l2_bytes"}
+# the solve's device loop: first solve (capture included), capture,
+# graphs, replays and host reads, busy share
+DEVICE_LOOP_KEYS = {"pcg_amg_first_solve_s", "solve_mode", "capture_s",
+                    "graph_nodes", "replays_per_solve",
+                    "masked_replays_per_solve", "host_reads_per_solve",
+                    "pcg_amg_solve_busy"}
 
 
 def _bench_py_keys():
@@ -86,7 +92,8 @@ def test_line_has_bench_py_keys(ran):
     _, line, _ = ran
     top, extra = _bench_py_keys()
     assert set(line) == top
-    assert set(line["extra"]) == (extra - TPU_ONLY) | CARD_KEYS
+    assert set(line["extra"]) == ((extra - TPU_ONLY) | CARD_KEYS
+                                  | DEVICE_LOOP_KEYS)
     assert line["metric"] == "spmv_nnz_per_s_per_chip"
     assert line["unit"] == "nnz/s"
     assert line["extra"]["backend"] == "cpu"
@@ -119,6 +126,21 @@ def test_cpu_run_names_no_device_number(ran):
     assert ex["amg_setup_s"] == sorted(ex["amg_setup_passes_s"])[1]
     assert ex["backend_init_s"] == pytest.approx(
         sum(ex["backend_init_breakdown_s"].values()), rel=1e-12)
+
+
+def test_device_loop_figures(ran):
+    """The solve's device-loop keys: on the CPU the eager body, with no
+    capture and no graph; one replay per iteration, the start's and one
+    masked past convergence."""
+    _, line, _ = ran
+    ex = line["extra"]
+    assert ex["solve_mode"] == "eager" and ex["capture_s"] == 0
+    assert ex["graph_nodes"] == {"total": 0, "largest": 0, "graphs": 0}
+    assert ex["replays_per_solve"] == ex["pcg_amg_iters_to_1e-8"] + 2
+    assert ex["masked_replays_per_solve"] == 1
+    assert ex["host_reads_per_solve"] == ex["replays_per_solve"]
+    assert ex["pcg_amg_first_solve_s"] > 0
+    assert ex["pcg_amg_solve_busy"] is None
 
 
 def test_without_card_raises(monkeypatch):

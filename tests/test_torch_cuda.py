@@ -13,6 +13,7 @@ float32 rounding (rel 1e-5) or float64 rounding (rel 1e-12).  The CSR
 kernel sums in a fixed order, so a repeat launch is bit-identical.
 """
 
+import contextlib
 import os
 
 import numpy as np
@@ -26,6 +27,10 @@ from hypredrive_tpu_torch.ops.csr_spmv import (TILE_NNZ, csr_spmv,
                                                csr_spmv_plain, csr_tiles)
 from hypredrive_tpu_torch.ops.device_matrix import EllMatrix
 from hypredrive_tpu_torch.ops.dia_spmv import dia_spmv, dia_spmv_plain
+from hypredrive_tpu_torch.solvers.bicgstab import bicgstab_core
+from hypredrive_tpu_torch.solvers.fgmres import fgmres_core
+from hypredrive_tpu_torch.solvers.gmres import gmres_core
+from hypredrive_tpu_torch.solvers.pcg import pcg_core
 
 pytestmark = pytest.mark.cuda
 
@@ -305,3 +310,123 @@ def test_dist_matvec_8_shards_on_card_matches_plain(dev, dtype):
                                             for E in D_gpu.shards) > 0
     ref = D_cpu.matvec(pad_vector(x, A.shape[0], D_cpu.mesh, dtype))
     assert _close(y, ref, dtype)
+
+
+# ---------------------------------------------------------------------------
+# the device loop: Krylov solves as replayed CUDA graphs
+# ---------------------------------------------------------------------------
+
+def _graph_problem(dev, kind):
+    """(matvec, precon) on the card: a 24³ Laplacian with the default AMG,
+    or multiphys2k with ex3's MGR."""
+    if kind == "lap24_amg":
+        from hypredrive_tpu_torch.config.sections import AMG_SCHEMA
+        from hypredrive_tpu_torch.precon.amg.cycle import amg_apply
+        from hypredrive_tpu_torch.precon.amg.hierarchy import setup_hierarchy
+
+        A = laplacian_3d_7pt(24)
+        st = setup_hierarchy(A, AMG_SCHEMA.defaults(), torch.float64, dev)
+        pc = lambda r: amg_apply(st, r)   # noqa: E731
+    else:
+        from hypredrive_tpu_torch.config.sections import MGR_SCHEMA
+        from hypredrive_tpu_torch.precon.mgr import mgr_apply, setup_mgr
+
+        A, dofmap = _multiphys2k()
+        st = setup_mgr(A, MGR_SCHEMA.parse(EX3_MGR, "mgr", []), dofmap,
+                       torch.float64, device=dev)
+        pc = lambda r: mgr_apply(st, r)   # noqa: E731
+    E = EllMatrix.from_csr(A, dtype=torch.float64, device=dev)
+    b = torch.tensor(np.random.default_rng(8).standard_normal(A.shape[0]),
+                     device=dev)
+    return E.matvec, pc, b
+
+
+GRAPH_SOLVES = {
+    "pcg": ("lap24_amg", lambda mv, pc, b: pcg_core(
+        mv, pc, b, torch.zeros_like(b), 1e-9, 0.0, 100, True, 3)),
+    "bicgstab": ("mp2k_mgr", lambda mv, pc, b: bicgstab_core(
+        mv, pc, b, torch.zeros_like(b), 1e-8, 0.0, 100)),
+    "gmres": ("mp2k_mgr", lambda mv, pc, b: gmres_core(
+        mv, pc, b, torch.zeros_like(b), 1e-9, 0.0, 100, 5, False)),
+    "fgmres": ("mp2k_mgr", lambda mv, pc, b: fgmres_core(
+        mv, pc, b, torch.zeros_like(b), 1e-9, 0.0, 100, 30)),
+}
+
+
+@pytest.mark.parametrize("method", sorted(GRAPH_SOLVES))
+def test_device_loop_graphs_match_eager_body(dev, method):
+    """The graph replays against the same bodies run eagerly on the card:
+    equal counts and kernel launches, histories and x to float64 rounding
+    (rel 1e-12; MGR's index_add sums in no fixed order), and a second
+    solve (replays of the cached graphs) bit-identical to the first up to
+    that order."""
+    from hypredrive_tpu_torch.solvers import device_loop as dl
+
+    kind, solve = GRAPH_SOLVES[method]
+    mv, pc, b = _graph_problem(dev, kind)
+    counters = dl.counted()
+    runs = []
+    for eager in (True, False, False):
+        for f in counters:
+            f.launches = 0
+        dl.reset_stats()
+        with (dl.eager() if eager else contextlib.nullcontext()):
+            out = solve(mv, pc, b)
+        torch.cuda.synchronize()
+        runs.append((out, [f.launches for f in counters], dict(dl.stats)))
+    (e, ne, se), (g1, n1, s1), (g2, n2, s2) = runs
+    assert se["graph_solves"] == 0 and s1["graph_solves"] == 1
+    assert s1["captures"] == 1 and s2["captures"] == 0
+    assert s1["max_nodes"] > 0 and s2["replays"] == s1["replays"]
+    assert e[1] == g1[1] == g2[1] and e[3] and g1[3]
+    assert ne == n1 == n2
+    k = e[1] + 1
+    for g in (g1, g2):
+        np.testing.assert_allclose(g[4][:k], e[4][:k], rtol=1e-12)
+        assert _close(g[0], e[0], torch.float64)
+    if method == "pcg":      # no atomics on the AMG path: bit-identical
+        assert torch.equal(g1[0], g2[0]) and torch.equal(g1[0], e[0])
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_krylov_small_kernels_match_plain(dev, dtype):
+    """givens_update and hessenberg_backsolve at GMRES(30), j = 0..29,
+    against their plain versions on the same inputs: bit-identical (both
+    round every product and sum, in the same order)."""
+    from hypredrive_tpu_torch.ops.krylov_small import (
+        givens_update, givens_update_plain, hessenberg_backsolve,
+        hessenberg_backsolve_plain)
+
+    m = 30
+    rng = np.random.default_rng(12)
+    state = {d: dict(H=torch.zeros((m + 1, m), dtype=dtype, device=d),
+                     cs=torch.zeros(m, dtype=dtype, device=d),
+                     sn=torch.zeros(m, dtype=dtype, device=d),
+                     g=torch.zeros(m + 1, dtype=dtype, device=d),
+                     norm=torch.zeros((), dtype=dtype, device=d),
+                     thr=torch.tensor(1e-6, dtype=dtype, device=d),
+                     done=torch.zeros((), dtype=torch.bool, device=d),
+                     hist=torch.zeros(m + 1, dtype=dtype, device=d),
+                     base=torch.zeros((), dtype=torch.int64, device=d),
+                     y=torch.zeros(m, dtype=dtype, device=d),
+                     count=torch.zeros((), dtype=torch.int64, device=d),
+                     on=torch.ones((), dtype=torch.bool, device=d))
+             for d in (dev, "cpu")}
+    for s in state.values():
+        s["g"][0] = 2.5
+    n0 = (givens_update.launches, hessenberg_backsolve.launches)
+    for j in range(m):
+        col = rng.standard_normal(j + 2)
+        for d, s, upd, bsolve in ((dev, state[dev], givens_update,
+                                   hessenberg_backsolve),
+                                  ("cpu", state["cpu"], givens_update_plain,
+                                   hessenberg_backsolve_plain)):
+            upd(s["H"], s["cs"], s["sn"], s["g"],
+                torch.tensor(col, dtype=dtype, device=d), j, s["on"],
+                s["norm"], s["thr"], s["done"], s["hist"], s["base"])
+            s["count"].fill_(j + 1)
+            bsolve(s["H"], s["g"], s["y"], s["count"], s["on"])
+        for key in ("H", "cs", "sn", "g", "norm", "done", "hist", "y"):
+            assert torch.equal(state[dev][key].cpu(), state["cpu"][key]), key
+    assert (givens_update.launches, hessenberg_backsolve.launches) == (
+        n0[0] + m, n0[1] + m)
