@@ -139,10 +139,12 @@ Phases (any failure exits non-zero and prints no result line):
    remainder holding its halo columns).
 4. device_loop: the figures of step 2's device-loop paths, and the Givens
    update and the Hessenberg back-substitution (``csrc/krylov_small.cu``,
-   the device form of XLA code, not TPU kernels) at GMRES(30) against
-   their plain versions, bit for bit in float32 and float64, with their
-   device times, bounds and (back-substitution) the time of
-   ``torch.linalg.solve_triangular``.
+   the device form of XLA code, not TPU kernels) at GMRES(m), m = 30 (the
+   main path's), 50 and 300, against their plain versions, bit for bit in
+   float32 and float64, with their device times, bounds, the floor (an
+   empty one-block kernel node), the chain estimate (dependent operations
+   times the latencies measured on the card) and (back-substitution) the
+   time of ``torch.linalg.solve_triangular``.
 
 The JAX package's numbers pinned below, and those in
 ``data/golden/jax_counts.json``, come from ``scripts/jax_goldens.py`` run on
@@ -2689,15 +2691,58 @@ LOOP_KEYS = ("bench64", "lap64", "lap128_f64", "mgr_64", "elasticity_rbm",
 PEAK_FLOP_S = {"float32": 67e12, "float64": 34e12}
 
 
-def krylov_small_rows(m=30):
+# GMRES(30) is the main path's shape; 50 is past one warp, and at 300 the
+# float64 triangle is past shared memory and streams
+KRYLOV_MS = (30, 50, 300)
+
+
+def krylov_chain_ms(name, size, lat):
+    """The recurrence's own chain: its dependent operations times their
+    latencies (``latency_probe``), in ms.  Givens at step j: j multiply-
+    adds, then the root's square, sum, sqrt and divide and the new
+    diagonal's multiply-add; back-substitution of n rows: n (n - 1) / 2
+    adds, n - 1 products of the fresh y[k+1], n subtractions and n
+    divides."""
+    if name == "givens_update":
+        ops = {"add": size + 2, "mul": size + 2, "sqrt": 1, "div": 1}
+    else:
+        ops = {"add": size * (size - 1) // 2 + size, "mul": size - 1,
+               "div": size}
+    return sum(k * lat[op]["ns"] for op, k in ops.items()) * 1e-6, ops
+
+
+def krylov_small_rows(ms=KRYLOV_MS):
     """givens_update at GMRES(m)'s last step j = m − 1 and
-    hessenberg_backsolve of the whole m × m system, float32 and float64:
-    the kernel against its plain version on the same inputs (a cycle's
-    state built by the plain version from seeded columns, then copied),
-    bit for bit; device ms by graph replay, plain ms on the card, the
-    bound (bytes over 3.35 TB/s, operations over the FP32/FP64 peak) and
-    ``torch.linalg.solve_triangular`` as the back-substitution's library
-    call."""
+    hessenberg_backsolve of the whole m × m system, float32 and float64,
+    for each m of ``ms``: the kernel against its plain version on the same
+    inputs (a cycle's state built by the plain version from seeded
+    columns, then copied), bit for bit; device ms by graph replay, plain
+    ms on the card, the bound (bytes over 3.35 TB/s, operations over the
+    FP32/FP64 peak), ``torch.linalg.solve_triangular`` as the back-
+    substitution's library call, the floor (an empty one-block kernel of
+    the same width, by graph replay) and the chain estimate
+    (``krylov_chain_ms``).  Rows at m ≠ 30 carry ``path_shape`` False."""
+    import torch
+    from hypredrive_tpu_torch.ops.krylov_small import (empty_node,
+                                                       latency_probe)
+
+    # each kernel's block width: 128 threads (Givens), 256 (back-subst.)
+    floor = {name: replay_ms(lambda t=t: empty_node(t))
+             for name, t in (("givens_update", 128),
+                             ("hessenberg_backsolve", 256))}
+    lat = {dtn: latency_probe(dt) for dtn, dt in
+           (("float32", torch.float32), ("float64", torch.float64))}
+    print("  floor (empty one-block node of the kernel's width, graph "
+          "replay): " + ", ".join(f"{k} {v:.5f} ms" for k, v in floor.items()))
+    for dtn, d in lat.items():
+        print(f"  latency {dtn}: " + ", ".join(
+            f"{op} {v['cycles']:.1f} cycles / {v['ns']:.2f} ns"
+            for op, v in d.items()))
+    return [r for m in ms for r in _krylov_small_rows_at(m, floor, lat)]
+
+
+def _krylov_small_rows_at(m, floor, lat):
+    """krylov_small_rows at one m."""
     import numpy as np
     import torch
     from hypredrive_tpu_torch.ops.krylov_small import (
@@ -2706,6 +2751,8 @@ def krylov_small_rows(m=30):
 
     rows = []
     rng = np.random.default_rng(30)
+    # the plain back-substitution walks m³/6 scalar steps of launches
+    plain_reps = (20, 10, 3) if m <= 50 else (1, 1, 1)
     for dt in (torch.float32, torch.float64):
         dtn = str(dt).replace("torch.", "")
         size = dt.itemsize
@@ -2760,6 +2807,7 @@ def krylov_small_rows(m=30):
                 flops = 6 * j + 11
                 library = None
                 shape = f"GMRES({m}) j={j}"
+                chain, chain_ops = krylov_chain_ms(name, j, lat[dtn])
             else:
                 run = lambda c=c1: hessenberg_backsolve(           # noqa
                     c["H"], c["g"], c["y"], c["count"], c["on"])
@@ -2772,27 +2820,33 @@ def krylov_small_rows(m=30):
                 library = lambda: torch.linalg.solve_triangular(   # noqa
                     U, rhs, upper=True)
                 shape = f"GMRES({m}) {m}x{m}"
+                chain, chain_ops = krylov_chain_ms(name, m, lat[dtn])
             t_bytes = nbytes / (HBM_TB_S * 1e12) * 1e3
             t_ops = flops / PEAK_FLOP_S[dtn] * 1e3
-            row = {"kernel": name, "shape": shape, "dtype": dtn,
+            row = {"kernel": name, "shape": shape, "dtype": dtn, "m": m,
+                   "path_shape": m == 30,
                    "max_abs_err": err, "max_rel_err": err,
                    "bit_identical": same, "bytes": nbytes, "flops": flops,
                    "ms": time_ms(run), "device_ms": replay_ms(run),
-                   "plain_ms": time_ms(plain, reps=20),
-                   "plain_device_ms": device_ms(plain, reps=10),
+                   "plain_ms": time_ms(plain, reps=plain_reps[0],
+                                       warmup=plain_reps[2]),
+                   "plain_device_ms": device_ms(plain, reps=plain_reps[1]),
                    "bound_ms": max(t_bytes, t_ops),
                    "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                   "library_ms": (replay_ms(library) if library else None)}
+                   "library_ms": (replay_ms(library) if library else None),
+                   "floor_ms": floor[name], "chain_ms": chain,
+                   "chain_ops": chain_ops}
             row["bound_share"] = row["bound_ms"] / row["device_ms"]
             row["tb_s"] = nbytes / (row["device_ms"] * 1e-3) / 1e12
             rows.append(row)
             lib_txt = ("n/a" if row["library_ms"] is None
-                       else f"{row['library_ms']:.4f}")
+                       else f"{row['library_ms']:.5f}")
             print(f"  {name:20s} {shape:18s} {dtn:8s} bit-identical {same} "
                   f"(max abs {err:.3e}); device {row['device_ms']:.5f} ms, "
                   f"events {row['ms']:.5f} ms, plain {row['plain_ms']:.4f} "
                   f"ms (device {row['plain_device_ms']:.4f}), library "
-                  f"{lib_txt} ms, bound {row['bound_ms']:.2e} ms "
+                  f"{lib_txt} ms, floor {row['floor_ms']:.5f} ms, chain "
+                  f"{chain:.5f} ms, bound {row['bound_ms']:.2e} ms "
                   f"({row['bound_by']})")
             check(same, f"{name} {shape} {dtn}: differs from its plain "
                         f"version by {err:.3e}")
@@ -2972,8 +3026,9 @@ def main() -> int:
     warm = report["lap128_f64"]["warm_launches"]
     for name, (source, replaces) in KERNELS.items():
         rows = [r for r in report["kernel_checks"] if r["kernel"] == name]
-        # the float64 shape that moves the most bytes
-        main_row = max((r for r in rows if r["dtype"] == "float64"),
+        # the float64 shape of the main path that moves the most bytes
+        main_row = max((r for r in rows if r["dtype"] == "float64"
+                        and r.get("path_shape", True)),
                        key=lambda r: r["bytes"])
         table.append({
             "name": name, "route": "cuda", "source": source,
@@ -2989,7 +3044,8 @@ def main() -> int:
             "shapes": [{k: r.get(k) for k in (
                 "shape", "dtype", "device_ms", "ms", "plain_device_ms",
                 "plain_ms", "bound_ms", "bound_share", "library_ms",
-                "baseline_device_ms", "max_rel_err", "tb_s")}
+                "baseline_device_ms", "max_rel_err", "tb_s", "floor_ms",
+                "chain_ms")}
                 for r in rows],
         })
     print(json.dumps({"kernels": table}))

@@ -117,6 +117,11 @@ def lib() -> ctypes.CDLL:
                 fn = getattr(cdll, f"hdtt_hessenberg_backsolve_{suffix}")
                 fn.restype = ctypes.c_int
                 fn.argtypes = [vp, vp, vp, i32, vp, vp, vp]
+                fn = getattr(cdll, f"hdtt_latency_probe_{suffix}")
+                fn.restype = ctypes.c_int
+                fn.argtypes = [i32, vp, vp, vp]
+            cdll.hdtt_empty_node.restype = ctypes.c_int
+            cdll.hdtt_empty_node.argtypes = [i32, vp]
             cdll.hdtt_graph_nodes.restype = ctypes.c_int
             cdll.hdtt_graph_nodes.argtypes = [vp, ctypes.POINTER(i64)]
             _lib = cdll

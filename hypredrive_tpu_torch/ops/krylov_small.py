@@ -29,6 +29,14 @@ are built with ``-fmad=false``) and take correctly rounded square roots,
 so they agree bit for bit.
 ``givens_update.launches`` and ``hessenberg_backsolve.launches`` count
 the kernel launches.
+
+Each kernel is one block that stages its operands in shared memory and
+runs the recurrence in one instruction stream out of it (the Givens step
+on 128 threads; the back-substitution on 256, the triangle streamed in
+chunks through two buffers when it does not fit); the source's header
+says how.  :func:`empty_node` and :func:`latency_probe` are measurement
+helpers, not counted: the floor under any one-block launch and the
+latencies of the operations the recurrences chain.
 """
 
 from __future__ import annotations
@@ -165,6 +173,31 @@ def hessenberg_backsolve(H, g, y, jcount, active) -> None:
 
 givens_update.launches = 0
 hessenberg_backsolve.launches = 0
+
+
+def empty_node(threads: int) -> None:
+    """Launch one empty block of ``threads`` threads on the current CUDA
+    stream (the floor under a one-block kernel node)."""
+    rc = kernels.lib().hdtt_empty_node(
+        threads, torch.cuda.current_stream().cuda_stream)
+    kernels.check(rc, "empty_node")
+
+
+def latency_probe(dtype) -> dict:
+    """Cycles and nanoseconds per operation of 4,096 dependent adds,
+    multiplies, divides and square roots in ``dtype``, timed on the current
+    card by one thread's SM clock and global timer (built like the
+    kernels, with ``-fmad=false``)."""
+    reps = 4096
+    out = torch.zeros(8, dtype=torch.int64, device="cuda")
+    sink = torch.zeros(4, dtype=dtype, device="cuda")
+    rc = _fn("latency_probe", dtype)(
+        reps, out.data_ptr(), sink.data_ptr(),
+        torch.cuda.current_stream().cuda_stream)
+    kernels.check(rc, "latency_probe")
+    v = out.tolist()
+    return {op: {"cycles": v[2 * i] / reps, "ns": v[2 * i + 1] / reps}
+            for i, op in enumerate(("add", "mul", "div", "sqrt"))}
 
 
 def graph_nodes(graph) -> int:

@@ -388,16 +388,19 @@ def test_device_loop_graphs_match_eager_body(dev, method):
         assert torch.equal(g1[0], g2[0]) and torch.equal(g1[0], e[0])
 
 
+@pytest.mark.parametrize("m", [30, 50, 300])
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
-def test_krylov_small_kernels_match_plain(dev, dtype):
-    """givens_update and hessenberg_backsolve at GMRES(30), j = 0..29,
+def test_krylov_small_kernels_match_plain(dev, dtype, m):
+    """givens_update and hessenberg_backsolve at GMRES(m), j = 0..m-1,
     against their plain versions on the same inputs: bit-identical (both
-    round every product and sum, in the same order)."""
+    round every product and sum, in the same order).  m = 50 is past one
+    warp; at m = 300 the float64 triangle is past shared memory and
+    streams.  Past m = 50 the back-substitution is held at every 23rd step
+    and the last three (its plain version walks m³/6 scalar steps)."""
     from hypredrive_tpu_torch.ops.krylov_small import (
         givens_update, givens_update_plain, hessenberg_backsolve,
         hessenberg_backsolve_plain)
 
-    m = 30
     rng = np.random.default_rng(12)
     state = {d: dict(H=torch.zeros((m + 1, m), dtype=dtype, device=d),
                      cs=torch.zeros(m, dtype=dtype, device=d),
@@ -414,6 +417,8 @@ def test_krylov_small_kernels_match_plain(dev, dtype):
              for d in (dev, "cpu")}
     for s in state.values():
         s["g"][0] = 2.5
+    solve_at = (set(range(m)) if m <= 50
+                else set(range(0, m, 23)) | set(range(m - 3, m)))
     n0 = (givens_update.launches, hessenberg_backsolve.launches)
     for j in range(m):
         col = rng.standard_normal(j + 2)
@@ -424,9 +429,99 @@ def test_krylov_small_kernels_match_plain(dev, dtype):
             upd(s["H"], s["cs"], s["sn"], s["g"],
                 torch.tensor(col, dtype=dtype, device=d), j, s["on"],
                 s["norm"], s["thr"], s["done"], s["hist"], s["base"])
-            s["count"].fill_(j + 1)
-            bsolve(s["H"], s["g"], s["y"], s["count"], s["on"])
+            if j in solve_at:
+                s["count"].fill_(j + 1)
+                bsolve(s["H"], s["g"], s["y"], s["count"], s["on"])
         for key in ("H", "cs", "sn", "g", "norm", "done", "hist", "y"):
             assert torch.equal(state[dev][key].cpu(), state["cpu"][key]), key
     assert (givens_update.launches, hessenberg_backsolve.launches) == (
-        n0[0] + m, n0[1] + m)
+        n0[0] + m, n0[1] + len(solve_at))
+
+
+# (dtype, m, n): the whole triangle in shared memory (f32 m = 64, f64
+# m = 200 with n < m), the triangle streamed through two buffers (f32
+# m = 400, f64 m = 300), and y in device memory as well (m past a quarter of
+# the 227 KB of shared memory); n = jcount rows solved
+BACKSOLVE_MODES = [(torch.float32, 64, 64), (torch.float64, 200, 150),
+                   (torch.float32, 400, 400), (torch.float64, 300, 300),
+                   (torch.float32, 15000, 300), (torch.float64, 7400, 200)]
+
+
+@pytest.mark.parametrize("dtype,m,n", BACKSOLVE_MODES,
+                         ids=lambda v: str(v).replace("torch.", ""))
+def test_backsolve_staging_modes_match_plain(dev, dtype, m, n):
+    """The back-substitution in each staging mode: bit-identical to the
+    plain version (with a zero pivot to skip), zero past n, the same from a
+    replayed CUDA graph, and zeros when masked."""
+    from hypredrive_tpu_torch.ops.krylov_small import (
+        hessenberg_backsolve, hessenberg_backsolve_plain)
+
+    rng = np.random.default_rng(m)
+    lead = rng.standard_normal((n + 1, n)) / n
+    lead[np.arange(n), np.arange(n)] = 1.0 + rng.random(n)
+    lead[n // 3, n // 3] = 0.0
+    H = torch.zeros((m + 1, m), dtype=dtype, device=dev)
+    H[:n + 1, :n] = torch.tensor(lead, dtype=dtype)
+    g = torch.tensor(rng.standard_normal(m + 1), dtype=dtype, device=dev)
+    count = torch.tensor(n, device=dev)
+    on = torch.tensor(True, device=dev)
+    y = torch.full((m,), 7.0, dtype=dtype, device=dev)
+    hessenberg_backsolve(H, g, y, count, on)
+    want = torch.zeros(n, dtype=dtype)
+    hessenberg_backsolve_plain(H[:n + 1, :n].cpu(), g[:n + 1].cpu(), want,
+                               torch.tensor(n), torch.tensor(True))
+    assert torch.equal(y[:n].cpu(), want) and not y[n:].any()
+    y2 = torch.full((m,), 7.0, dtype=dtype, device=dev)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        hessenberg_backsolve(H, g, y2, count, on)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(y2, y)
+    hessenberg_backsolve(H, g, y2, count, torch.tensor(False, device=dev))
+    assert not y2.any()
+
+
+@pytest.mark.parametrize("dtype,m", [(torch.float32, 20000),
+                                     (torch.float64, 10000)],
+                         ids=lambda v: str(v).replace("torch.", ""))
+def test_givens_in_device_memory_matches_plain(dev, dtype, m):
+    """givens_update at j = m - 1 where its column and rotations (3 j + 10
+    entries) do not fit in shared memory and stay in device memory:
+    bit-identical to the plain version; nothing written when masked."""
+    from hypredrive_tpu_torch.ops.krylov_small import (givens_update,
+                                                       givens_update_plain)
+
+    j = m - 1
+    rng = np.random.default_rng(j)
+    theta = rng.uniform(0, 2 * np.pi, m)
+    vals = dict(cs=np.cos(theta), sn=np.sin(theta),
+                g=rng.standard_normal(m + 1), col=rng.standard_normal(j + 2))
+    st = {}
+    for d in (dev, "cpu"):
+        s = {k: torch.tensor(v, dtype=dtype, device=d)
+             for k, v in vals.items()}
+        # only column j is read or written: the plain version gets that
+        # column's rows
+        s["H"] = torch.zeros((m + 1, m) if d != "cpu" else (j + 2, j + 1),
+                             dtype=dtype, device=d)
+        s.update(norm=torch.zeros((), dtype=dtype, device=d),
+                 thr=torch.tensor(1e-6, dtype=dtype, device=d),
+                 done=torch.zeros((), dtype=torch.bool, device=d),
+                 hist=torch.zeros(m + 1, dtype=dtype, device=d),
+                 base=torch.zeros((), dtype=torch.int64, device=d),
+                 on=torch.ones((), dtype=torch.bool, device=d))
+        st[d] = s
+    args = lambda s: (s["H"], s["cs"], s["sn"], s["g"], s["col"], j,  # noqa
+                      s["on"], s["norm"], s["thr"], s["done"], s["hist"],
+                      s["base"])
+    givens_update(*args(st[dev]))
+    givens_update_plain(*args(st["cpu"]))
+    a, b = st[dev], st["cpu"]
+    assert torch.equal(a["H"][:, j].cpu(), b["H"][:, j])
+    for key in ("cs", "sn", "g", "norm", "done", "hist"):
+        assert torch.equal(a[key].cpu(), b[key]), key
+    snap = {k: v.clone() for k, v in a.items()}
+    a["on"].fill_(False)
+    givens_update(*args(a))
+    assert all(torch.equal(a[k], snap[k]) for k in snap if k != "on")

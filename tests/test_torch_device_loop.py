@@ -186,6 +186,51 @@ def test_gmres_xref_histories_match_jax(name):
     assert np.all(np.isnan(et[it_t + 1:]))
 
 
+@pytest.mark.parametrize("tagged", [False, True], ids=["cycle_end",
+                                                      "xref_every_step"])
+def test_gmres50_givens_and_backsolve_match_jax(tagged):
+    """GMRES(50) on the 16³ Laplacian without a preconditioner (73
+    iterations: a whole cycle of Givens steps j = 0..49 and the 50 × 50
+    back-substitution at its end, then a cycle of 23; with xref the back-
+    substitution after every step too): the port's plain Givens update and
+    back-substitution against the JAX package's ``rot_step`` and
+    ``back_sub`` (``bs``) in its jitted core.  Equal iteration counts,
+    histories (and error histories) within HIST_TOL · ‖r0‖ and x within
+    1e-10 of its largest entry, the tolerances of the other JAX comparisons
+    here."""
+    A = laplacian_3d_7pt(16)
+    b = np.random.default_rng(5).standard_normal(A.shape[0])
+    xref = np.random.default_rng(6).standard_normal(A.shape[0])
+    tags = np.zeros(A.shape[0], np.int64)
+    kw_j = dict(num_tags=1, xref=jnp.asarray(xref),
+                tags=jnp.asarray(tags, jnp.int32)) if tagged else {}
+    kw_t = dict(num_tags=1, xref=torch.tensor(xref),
+                tags=torch.tensor(tags)) if tagged else {}
+    E = JaxEll.from_csr(A)
+
+    @jax.jit
+    def run_j(bj, x0):
+        return _gmres_core(lambda v: E.matvec(v), lambda r: r, bj, x0,
+                           jnp.asarray(RTOL), jnp.asarray(0.0), 200, 50,
+                           False, **kw_j)
+
+    out_j = run_j(jnp.asarray(b), jnp.zeros(len(b)))
+    bt = torch.tensor(b)
+    out_t = gmres_core(EllMatrix.from_csr(A).matvec, lambda r: r, bt,
+                       torch.zeros_like(bt), RTOL, 0.0, 200, 50, False,
+                       **kw_t)
+    it_t = out_t[1]
+    assert it_t == int(out_j[1]) and it_t > 50
+    _assert_history(out_t[4], out_j[4], it_t)
+    xj = np.asarray(out_j[0])
+    np.testing.assert_allclose(out_t[0].numpy(), xj, rtol=0,
+                               atol=1e-10 * np.abs(xj).max())
+    if tagged:
+        ej = np.asarray(out_j[5])[:it_t + 1]
+        np.testing.assert_allclose(out_t[5][:it_t + 1], ej, rtol=0,
+                                   atol=HIST_TOL * np.abs(ej).max())
+
+
 # ---------------------------------------------------------------------------
 # masked iterations and the unrolled form
 # ---------------------------------------------------------------------------
@@ -314,7 +359,7 @@ def _hessenberg_cycle(m, dtype, seed):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=str)
-@pytest.mark.parametrize("m", [1, 5, 30])
+@pytest.mark.parametrize("m", [1, 5, 30, 50])
 def test_givens_and_backsolve_plain_bit_identical_to_host(m, dtype):
     np_dt, cols = _hessenberg_cycle(m, dtype, seed=m)
     H, cs, sn = np.zeros((m + 1, m), np_dt), np.zeros(m, np_dt), \
