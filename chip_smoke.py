@@ -107,6 +107,16 @@ Phases (any failure exits non-zero and prints no result line):
      ctypes in this process); flagship (``flagship.entry()``, the port of
      ``__graft_entry__.entry()``: the JAX entry's count) and profile_solve
      (``tools/profile_solve.py`` on examples/ex3.yml, a Chrome trace).
+   - the ports of the repo's JAX-bound scripts: example_output
+     (``tools/generate_example_output.py`` over every example, held against
+     the JAX package's outputs in ``data/golden/example_output_jax``: equal
+     text outside the stats tables, equal counts, residuals within rel
+     2e-2), bench_kernels (``tools/bench_kernels.py`` at 64³ float32: the
+     build and launch probe, the triad, the DIA and CSR rows, each within
+     rel 1e-5 of scipy, and the V-cycle) and plot_convergence
+     (``tools/plot_convergence.run_config`` on ex1 and ex3: the JAX
+     package's counts and final residuals to rel 1e-6, then its plot, or
+     its typed error without matplotlib).
    Every Krylov solve runs through the device loop: captured CUDA graphs,
    one replay per iteration (GMRES: per inner step, and one for each
    cycle's start and end).  On bench64, lap64, lap128_f64, mgr_64,
@@ -158,6 +168,11 @@ and as its last line ``{"ok": true, "device": {...}}``.  Details go to
 the row-group C interface (lanes per row as its argument), into
 ``build/csr_baseline/`` and times it at every CSR shape beside the current
 kernel, in the order earlier, current, current, earlier.
+
+``--fsai-parent DIR`` runs only the environment and the FSAI setup timing:
+a 64³ adaptive FSAI build and ex2's and ex8's setups, each in a fresh
+process in DIR (an earlier checkout) and in this one, in the order DIR,
+this, this, DIR, printed side by side.
 """
 
 import ctypes
@@ -167,6 +182,10 @@ import subprocess
 import sys
 import threading
 import time
+
+from hypredrive_tpu_torch.core.entry import replay_ms
+from hypredrive_tpu_torch.tools.bench_kernels import (
+    HBM_TB_S, dia_as_csr, library_spmv, operand_copies, spmv_bytes)
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
@@ -308,8 +327,6 @@ ELASTICITY_V0_PRECON = (
 # and convdif_air operators)
 KEEP = {}
 
-HBM_TB_S = 3.35   # H100 SXM device-memory rate (NVIDIA data sheet)
-L2_BYTES = 50 * 2**20   # H100 SXM L2 cache (NVIDIA data sheet)
 BOUND_SHARE_MAX = 1.05  # a kernel faster than its bound fails the check
 
 # the earlier CSR kernel to time beside the current one (--baseline-csr)
@@ -406,38 +423,6 @@ def device_ms(fns, reps=20):
         torch.cuda.synchronize()
     us = sum(us for us, _ in device_kernels(prof).values())
     return us / 1e3 / reps
-
-
-def replay_ms(fns, reps=20, replays=5):
-    """Device time of one call: a CUDA graph of ``reps`` calls (cycling
-    through ``fns``), replayed ``replays`` times between two CUDA events.
-    The calls run back to back on the device with no host gaps, so kernels
-    shorter than the host's launch period are timed too.  (After the solve
-    phases the profiler was seen to drop kernel records, so it times only
-    what a graph cannot capture.)"""
-    import torch
-
-    fns, reps = _calls(fns, reps)
-    fns[0]()
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fns[0]()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for i in range(reps):
-            fns[i % len(fns)]()
-    graph.replay()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(replays):
-        graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    del graph
-    return start.elapsed_time(end) / (replays * reps)
 
 
 class uncounted:
@@ -590,54 +575,6 @@ def phase_env(report):
     report["host_helpers"] = host.get("backend")
     print(f"AMG host setup helpers: {report['host_helpers']} "
           f"({host.get('s', 0.0):.3f} s)")
-
-
-def spmv_bytes(kind, E, itemsize):
-    """Least bytes one matvec of E's DIA or CSR part moves: its stored
-    entries (values; the CSR's indices and indptr too), y and x once.  A
-    DIA slot that holds no entry of the matrix (a zero inside the band or
-    past its ends) is no work of the function and is not counted."""
-    import torch
-
-    nr, nc = E.shape
-    if kind == "dia_spmv":
-        entries = int(torch.count_nonzero(E.dia_data))
-        return entries * itemsize + (nr + nc) * itemsize
-    return (E.data.numel() * (itemsize + 4)
-            + (nr + 1) * E.indptr.element_size() + (nr + nc) * itemsize)
-
-
-def operand_copies(nbytes):
-    """Copies of a kernel's operand (the matrix part and x) that one timing
-    cycles through: enough to fill four times the L2, so that every call
-    reads its operand from device memory, as the bound assumes, and not
-    from what the previous call left in the L2."""
-    return max(1, -(-4 * L2_BYTES // nbytes))
-
-
-def dia_as_csr(dia, offsets, n_cols):
-    """(crow, col, values) int32/int32/dtype of a (D, n_rows) DIA part, the
-    entries inside the columns, row by row in offset order."""
-    import torch
-
-    n_rows = dia.shape[1]
-    offs = torch.tensor(offsets, device=dia.device)
-    cols = torch.arange(n_rows, device=dia.device)[:, None] + offs[None, :]
-    ok = (cols >= 0) & (cols < n_cols)
-    crow = torch.zeros(n_rows + 1, dtype=torch.int64, device=dia.device)
-    crow[1:] = torch.cumsum(ok.sum(dim=1), 0)
-    return crow.int(), cols[ok].int(), dia.t()[ok].contiguous()
-
-
-def library_spmv(crow, col, values, shape):
-    """One PyTorch call computing the same product: a sparse CSR tensor
-    times x (cuSPARSE).  The yardstick of library_ms; the port never calls
-    it."""
-    import torch
-
-    A = torch.sparse_csr_tensor(crow, col, values, size=shape,
-                                check_invariants=False)
-    return lambda x: torch.mv(A, x)
 
 
 def load_baseline(src):
@@ -2683,6 +2620,143 @@ def phase_bindings(report):
     report["bindings"] = bindings.run()
 
 
+JAX_EXAMPLE_OUTPUT = os.path.join("data", "golden", "example_output_jax")
+BENCH_KERNELS_TOL = 1e-5   # float32 SpMV rows against scipy
+PLOT_RTOL = 1e-6
+
+
+def phase_example_output(report):
+    """``tools/generate_example_output.py`` over every example on the card,
+    held against the JAX package's outputs: equal text outside the stats
+    tables, equal counts, residuals within rel 2e-2."""
+    from hypredrive_tpu_torch.tools import generate_example_output as geo
+
+    results = geo.run(compare_dir=JAX_EXAMPLE_OUTPUT)
+    report["example_output"] = {cfg: {"rc": r["rc"],
+                                      "problems": r["problems"]}
+                                for cfg, r in results.items()}
+    check(sorted(results) == sorted(geo.EXAMPLES),
+          f"example_output: ran {sorted(results)}")
+    bad = {cfg: r["problems"] or f"rc {r['rc']}"
+           for cfg, r in results.items() if r["rc"] or r["problems"]}
+    check(not bad, f"example_output: {bad}")
+
+
+def phase_bench_kernels(report):
+    """``tools/bench_kernels.py`` at 64³ float32: the probe, the triad,
+    the DIA and CSR rows (each within rel 1e-5 of scipy) and the V-cycle."""
+    from hypredrive_tpu_torch.tools import bench_kernels
+
+    out = report["bench_kernels"] = bench_kernels.run(64, "float32")
+    check(out["probe"]["launch_ok"],
+          "bench_kernels: a probe launch disagrees with its plain version")
+    spmv = [r for r in out["rows"] if r["name"] in ("dia_spmv", "csr_spmv")]
+    check({r["name"] for r in spmv} == {"dia_spmv", "csr_spmv"},
+          f"bench_kernels: SpMV rows {[r['name'] for r in spmv]}")
+    for r in spmv:
+        check(r["rel_err"] <= BENCH_KERNELS_TOL,
+              f"bench_kernels {r['name']} {r['shape']}: rel err "
+              f"{r['rel_err']:.3e} > {BENCH_KERNELS_TOL}")
+
+
+def phase_plot_convergence(report):
+    """``tools/plot_convergence.run_config`` on ex1 and ex3 on the card:
+    the JAX package's count (one history entry more) and final relative
+    residual (``jax_counts.json``'s parity_report, rel 1e-6); then its main,
+    which plots, or raises a typed error without matplotlib."""
+    from hypredrive_tpu_torch.core.errors import HypredrvError
+    from hypredrive_tpu_torch.tools import plot_convergence
+
+    golden = jax_counts("parity_report")["cases"]
+    out = report["plot_convergence"] = {}
+    for name in ("ex1.yml", "ex3.yml"):
+        hist, res = plot_convergence.run_config(os.path.join("examples",
+                                                             name))
+        ((iters, rel),) = golden[name]
+        out[name] = {"iters": res.iters, "history_len": len(hist),
+                     "rel_res_norm": res.rel_res_norm, "jax": [iters, rel]}
+        print(f"plot_convergence {name}: {res.iters} iterations, history of "
+              f"{len(hist)}, rel res {res.rel_res_norm:.10e} (JAX package "
+              f"{iters}, {rel:.10e})")
+        check(res.iters == iters and len(hist) == iters + 1,
+              f"plot_convergence {name}: {res.iters} iterations, history of "
+              f"{len(hist)}; JAX package {iters}")
+        check(abs(res.rel_res_norm - rel) <= PLOT_RTOL * rel,
+              f"plot_convergence {name}: rel res {res.rel_res_norm:.6e}, "
+              f"JAX package {rel:.6e}")
+    png = os.path.join("build", "convergence_ex1.png")
+    try:
+        plot_convergence.main([os.path.join("examples", "ex1.yml"), "-o",
+                               png])
+        out["plot"] = png
+        check(os.path.getsize(png) > 0, "plot_convergence: empty plot")
+    except HypredrvError as exc:
+        out["plot"] = f"typed error: {exc}"
+        print(f"plot_convergence: no plot ({exc})")
+        check("matplotlib" in str(exc), f"plot_convergence: {exc}")
+
+
+# the 64³ adaptive FSAI build and the ex2/ex8 setups, in a fresh process
+# in a given checkout (--fsai-parent: parent, this, this, parent)
+FSAI_TIMING = r"""
+import json, sys, time
+sys.path.insert(0, ".")
+import torch
+from hypredrive_tpu_torch import cli
+from hypredrive_tpu_torch.ops.csr import laplacian_3d_7pt
+from hypredrive_tpu_torch.precon.fsai import build_fsai_adaptive
+out = {}
+for name in ("ex2.yml", "ex8.yml"):
+    for _ in range(2):      # the second run's setups: kernels loaded
+        collect = []
+        rc = cli.run_one_config("examples/" + name, overrides=[
+            ("general:print_config_params", "off")], collect=collect)
+        assert rc == 0, name
+    out[name] = [e.setup_time for e in collect[0].stats.entries]
+A = laplacian_3d_7pt(64)
+t0 = time.perf_counter()
+st = build_fsai_adaptive(A, device=torch.device("cuda"))
+torch.cuda.synchronize()
+out["fsai_adaptive_64_s"] = time.perf_counter() - t0
+out["fsai_adaptive_64_nnz"] = int(st.G.nnz)
+print("FSAI_TIMES " + json.dumps(out))
+"""
+
+
+def fsai_times(root):
+    """FSAI_TIMING run in the checkout at ``root``."""
+    proc = subprocess.run([sys.executable, "-c", FSAI_TIMING], cwd=root,
+                          capture_output=True, text=True, timeout=900)
+    lines = [ln for ln in proc.stdout.splitlines()
+             if ln.startswith("FSAI_TIMES ")]
+    check(proc.returncode == 0 and lines,
+          f"FSAI timing in {root}: rc {proc.returncode}: "
+          f"{proc.stderr[-2000:]}")
+    return json.loads(lines[-1].split(" ", 1)[1])
+
+
+def phase_fsai_parent(report, parent):
+    """The FSAI setups beside the parent's, on this machine's host: the
+    64³ adaptive build and ex2's and ex8's setups (ex2 entry 0 and ex8
+    entry 3 set up FSAI), in the order parent, this, this, parent."""
+    runs = [("parent", parent), ("this", REPO), ("this", REPO),
+            ("parent", parent)]
+    out = report["fsai_setup"] = {"parent": [], "this": []}
+    for label, root in runs:
+        t = fsai_times(root)
+        out[label].append(t)
+        print(f"fsai_setup {label}: 64^3 adaptive build "
+              f"{t['fsai_adaptive_64_s']:.3f} s (G nnz "
+              f"{t['fsai_adaptive_64_nnz']}), ex2 setup s "
+              f"{[round(v, 4) for v in t['ex2.yml']]}, ex8 setup s "
+              f"{[round(v, 4) for v in t['ex8.yml']]}", flush=True)
+    mean = {k: sum(t["fsai_adaptive_64_s"] for t in v) / len(v)
+            for k, v in out.items()}
+    out["ratio_64"] = mean["this"] / mean["parent"]
+    print(f"fsai_setup: 64^3 adaptive build {mean['this']:.3f} s against "
+          f"the parent's {mean['parent']:.3f} s ({out['ratio_64']:.3f}x)")
+
+
 # the paths whose device-loop figures PERF.md keeps (device_loop_check)
 LOOP_KEYS = ("bench64", "lap64", "lap128_f64", "mgr_64", "elasticity_rbm",
              "ams_maxwell64", "dist_mgr64")
@@ -2939,16 +3013,22 @@ PATHS = (("ex1", phase_ex1, BOTH), ("lap64", phase_64, BOTH),
          ("profile_setup", phase_profile_setup, BOTH),
          ("node_scaling", phase_node_scaling, BOTH),
          ("parity_report", phase_parity_report, ARNOLDI),
-         ("bindings", phase_bindings, BOTH))
+         ("bindings", phase_bindings, BOTH),
+         ("example_output", phase_example_output, ARNOLDI),
+         ("bench_kernels", phase_bench_kernels, BOTH),
+         ("plot_convergence", phase_plot_convergence, ARNOLDI))
 
 
 def main() -> int:
     args = sys.argv[1:]
-    baseline_src = None
+    baseline_src = fsai_parent = None
     if args[:1] == ["--baseline-csr"] and len(args) == 2:
         baseline_src = os.path.abspath(args[1])
+    elif args[:1] == ["--fsai-parent"] and len(args) == 2:
+        fsai_parent = os.path.abspath(args[1])
     elif args:
-        print("usage: chip_smoke.py [--baseline-csr FILE]", file=sys.stderr)
+        print("usage: chip_smoke.py [--baseline-csr FILE | --fsai-parent "
+              "DIR]", file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
     os.chdir(REPO)
@@ -2975,6 +3055,13 @@ def main() -> int:
         print(f"phase {name}: {report['phase_s'][name]:.3f} s")
 
     run("env", phase_env)
+    if fsai_parent:
+        if not failures:
+            run("fsai_setup", lambda r: phase_fsai_parent(r, fsai_parent))
+        print(json.dumps({"fsai_setup": report.get("fsai_setup"),
+                          "nvidia_smi": report.get("nvidia_smi"),
+                          "failures": failures}))
+        return 1 if failures else 0
     if baseline_src and not failures:
         run("baseline", lambda _: load_baseline(baseline_src))
     if not failures:

@@ -44,23 +44,26 @@ def synchronize(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-def replay_ms(fn, reps: int = 20, replays: int = 5) -> float:
-    """Device time of one call of ``fn`` on the card: a CUDA graph of
-    ``reps`` calls, replayed ``replays`` times between two CUDA events, so
-    the calls run back to back with no host gaps.  ``fn`` runs once before
-    and once on a side stream, as capture requires; its temporaries come
-    from the graph's private pool.  A launch counter ticks at capture,
-    not at replay."""
-    fn()
+def replay_ms(fns, reps: int = 20, replays: int = 5) -> float:
+    """Device time of one call on the card: a CUDA graph of ``reps`` calls,
+    replayed ``replays`` times between two CUDA events, so the calls run
+    back to back with no host gaps.  ``fns`` is one callable, or copies of
+    one call over copies of its operand, which the graph cycles through
+    (then at least once each).  The first runs once before and once on a
+    side stream, as capture requires; temporaries come from the graph's
+    private pool.  A launch counter ticks at capture, not at replay."""
+    fns = list(fns) if isinstance(fns, (list, tuple)) else [fns]
+    reps = max(reps, len(fns))
+    fns[0]()
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        fn()
+        fns[0]()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
+        for i in range(reps):
+            fns[i % len(fns)]()
     graph.replay()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)

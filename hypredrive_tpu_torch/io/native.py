@@ -1,6 +1,7 @@
 """ctypes bindings for the native C++ host helpers (native/src/ij_io.cpp,
-native/src/amg_setup.cpp, hypredrive_tpu_torch/csrc/ilu0.cpp): IJ I/O, the
-AMG setup passes, the LZ4 block codec and the ILU(0) factorization.
+native/src/amg_setup.cpp, hypredrive_tpu_torch/csrc/{ilu0,fsai_solve}.cpp):
+IJ I/O, the AMG setup passes, the LZ4 block codec, the ILU(0)
+factorization and FSAI's batched row solves.
 
 The shared library is compiled on first use with ``g++`` from those
 sources into ``build/hypredrive_tpu_torch/native-<hash>/``, keyed by a
@@ -9,7 +10,8 @@ never touched.  ``-ffp-contract=off`` keeps the compiler from fusing a
 multiply and an add, so the ILU(0) loop rounds as its Python version
 does.  If the build or load fails the callers fall back to the
 pure-numpy code, so the native layer is an accelerator, never a
-requirement.  :func:`backend` says which path was taken.  Ref counterparts:
+requirement -- except for FSAI's row solves (:func:`fsai_solve`), which
+raise without it.  :func:`backend` says which path was taken.  Ref counterparts:
 src/internal/matrix.c:142, src/internal/vector.c:92.
 """
 
@@ -28,7 +30,9 @@ _REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 _SRCS = (os.path.join(_REPO, "native", "src", "ij_io.cpp"),
          os.path.join(_REPO, "native", "src", "amg_setup.cpp"),
-         os.path.join(_REPO, "hypredrive_tpu_torch", "csrc", "ilu0.cpp"))
+         os.path.join(_REPO, "hypredrive_tpu_torch", "csrc", "ilu0.cpp"),
+         os.path.join(_REPO, "hypredrive_tpu_torch", "csrc",
+                      "fsai_solve.cpp"))
 _GXX_FLAGS = ("-O3", "-ffp-contract=off", "-fPIC", "-shared", "-std=c++17")
 _BUILD_ROOT = os.path.join(_REPO, "build", "hypredrive_tpu_torch")
 
@@ -161,6 +165,11 @@ def get_lib() -> Optional[ctypes.CDLL]:
         lib.hdtt_ilu0_factor.restype = ctypes.c_int64
         lib.hdtt_ilu0_factor.argtypes = [
             ctypes.c_int64, i64p, i32p, f64p, i64p]
+        # FSAI row solves (hypredrive_tpu_torch/csrc/fsai_solve.cpp)
+        lib.hdtt_fsai_solve.restype = None
+        lib.hdtt_fsai_solve.argtypes = [
+            ctypes.c_int64, ctypes.c_int32, f64p, f64p, f64p,
+            ctypes.c_void_p, ctypes.c_void_p]
         _lib = lib
         return _lib
 
@@ -191,6 +200,47 @@ def ilu0_factor_data(indptr: np.ndarray, indices: np.ndarray,
     if rc != 0:
         raise ValueError(f"row {rc - 1} has no diagonal entry")
     return out
+
+
+def _capsule_address(module, name: str) -> int:
+    """The address a Cython module exports under ``name`` (a PyCapsule of
+    its ``__pyx_capi__``)."""
+    cap = module.__pyx_capi__[name]
+    api = ctypes.pythonapi
+    api.PyCapsule_GetName.restype = ctypes.c_char_p
+    api.PyCapsule_GetName.argtypes = [ctypes.py_object]
+    api.PyCapsule_GetPointer.restype = ctypes.c_void_p
+    api.PyCapsule_GetPointer.argtypes = [ctypes.py_object, ctypes.c_char_p]
+    return api.PyCapsule_GetPointer(cap, api.PyCapsule_GetName(cap))
+
+
+def fsai_solve(sub: np.ndarray, rhs: np.ndarray) -> np.ndarray:
+    """y with sub[i] @ y[i] = rhs[i] for (n, k, k) sub and (n, k) rhs, by
+    SciPy's dgetrf and two dtrsm per row in compiled code: what
+    ``jax.vmap(jnp.linalg.solve)`` computes on the CPU, bit for bit.
+    Raises HypredrvError when the helper did not build."""
+    from scipy.linalg import cython_blas, cython_lapack
+
+    from ..core.errors import ErrorCode, HypredrvError
+
+    lib = get_lib()
+    if lib is None:
+        raise HypredrvError("FSAI setup: the compiled row solve "
+                            "(hypredrive_tpu_torch/csrc/fsai_solve.cpp) did "
+                            "not build (g++ is needed)", ErrorCode.EXTERNAL)
+    n, k = rhs.shape
+    if sub.shape != (n, k, k):
+        raise ValueError(f"fsai_solve: matrices {sub.shape} for right-hand "
+                         f"sides {rhs.shape}")
+    sub = np.ascontiguousarray(sub, np.float64)
+    rhs = np.ascontiguousarray(rhs, np.float64)
+    y = np.empty((n, k), np.float64)
+    f64p = ctypes.POINTER(ctypes.c_double)
+    lib.hdtt_fsai_solve(n, k, sub.ctypes.data_as(f64p),
+                        rhs.ctypes.data_as(f64p), y.ctypes.data_as(f64p),
+                        _capsule_address(cython_lapack, "dgetrf"),
+                        _capsule_address(cython_blas, "dtrsm"))
+    return y
 
 
 def read_matrix_ascii(path: str

@@ -3,7 +3,11 @@
 Counterpart of ``hypredrive_tpu/precon/fsai.py`` (ref: src/internal/fsai.c;
 algo bj-afsai/bj-sfsai; max_steps, max_step_size, max_nnz_row, threshold,
 kap_tolerance).  The setup is the JAX package's host code, with its batched
-(n, k, k) row solves done by numpy's LAPACK instead of a vmapped JAX solve.
+(n, k, k) row solves done in compiled code (``csrc/fsai_solve.cpp``) by
+the LAPACK and BLAS calls that ``jax.vmap(jnp.linalg.solve)`` makes on the
+CPU, so G is the JAX package's bit for bit: on a Laplacian several Kaporin
+candidates tie in exact arithmetic, and the last bits of the solve pick
+among them.
 
 For SPD A, find lower-triangular G ≈ L⁻¹ (A = LLᵀ) by minimizing
 ‖I − GL‖_F over a sparsity pattern: each row i solves the small dense
@@ -24,6 +28,7 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
+from ..io.native import fsai_solve
 from ..ops.device_matrix import EllMatrix
 from .base import Preconditioner, precon_matrix
 
@@ -38,9 +43,22 @@ def fsai_apply(state: FSAIState, r):
     return state.GT.matvec(state.G.matvec(r))
 
 
-def _batched_solve(sub: np.ndarray, rhs: np.ndarray) -> np.ndarray:
-    """(n, k, k) · y = (n, k), one LAPACK solve per row."""
-    return np.linalg.solve(sub, rhs[..., None])[..., 0]
+def batched_solve_plain(sub: np.ndarray, rhs: np.ndarray) -> np.ndarray:
+    """(n, k, k) · y = (n, k) row by row in Python: dgetrf, the pivots'
+    swaps on the right-hand side, then a unit-lower and an upper dtrsm on
+    it as a (k, 1) column -- the plain version of the compiled
+    ``io/native.py::fsai_solve``, with the same SciPy routines."""
+    from scipy.linalg import blas, lu_factor
+
+    y = np.array(rhs, dtype=np.float64)
+    for i in range(len(y)):
+        lu, piv = lu_factor(sub[i], check_finite=False)
+        x = y[i]
+        for r, p in enumerate(piv):
+            x[r], x[p] = x[p], x[r]
+        x = blas.dtrsm(1.0, lu, x[:, None], side=0, lower=1, diag=1)
+        y[i] = blas.dtrsm(1.0, lu, x, side=0, lower=0, diag=0)[:, 0]
+    return y
 
 
 def _upload(G: sp.csr_matrix, dtype, device) -> FSAIState:
@@ -118,7 +136,7 @@ def build_fsai(A_host: sp.csr_matrix, max_nnz_row: int = 3,
     # batched solve A[J,J] y = e_last(valid)
     e = np.zeros((n, k))
     e[np.arange(n), sizes - 1] = 1.0
-    y = _batched_solve(sub, e)
+    y = fsai_solve(sub, e)
 
     # scale: G_ii = sqrt(1 / y_i) so that (G A Gᵀ)_ii = 1
     y_diag = y[np.arange(n), sizes - 1]
@@ -192,7 +210,7 @@ def build_fsai_adaptive(A_host: sp.csr_matrix, max_steps: int = 5,
         foundr = keys[posr] == qr
         rhs = -np.where(foundr, A.data[posr], 0.0).reshape(n, k)
         rhs = np.where(valid, rhs, 0.0)
-        y = _batched_solve(sub, rhs)
+        y = fsai_solve(sub, rhs)
         y = np.where(valid, y, 0.0)
         kap = diag + np.einsum("nk,nk->n", -rhs, y)
         return y, kap

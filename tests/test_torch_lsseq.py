@@ -176,34 +176,6 @@ def test_lsseq_rejections(case, valid_lsseq):
             lsseq.LSSeqFile(valid_lsseq).read_matrix(99)
 
 
-def _corpus(mode):
-    d = os.path.join(REPO, "tests", "fuzz_corpus", mode)
-    return [(mode, os.path.join(d, n)) for n in sorted(os.listdir(d))]
-
-
-@pytest.mark.parametrize("mode,path", _corpus("comp") + _corpus("lsseq"))
-def test_fuzz_corpus_typed_only(mode, path, tmp_path):
-    """The saved comp and lsseq fuzz regressions raise typed errors only
-    in the port's codecs and reader."""
-    data = open(path, "rb").read()
-    if mode == "comp":
-        for codec in (comp.COMP_ZLIB, comp.COMP_LZ4, comp.COMP_BLOSC):
-            try:
-                comp.decompress(codec, data)
-            except HypredrvError:
-                pass
-        return
-    p = str(tmp_path / "s.bin")
-    with open(p, "wb") as f:
-        f.write(data)
-    try:
-        r = lsseq.LSSeqFile(p)
-        if r.num_systems:
-            r.read_matrix(0)
-    except HypredrvError:
-        pass
-
-
 def _ex7_from(container, tmp_path):
     text = open(os.path.join(REPO, "examples", "ex7.yml")).read()
     text = re.sub(r"linear_system:\n(  .*\n)+",

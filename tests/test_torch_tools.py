@@ -8,9 +8,8 @@ package on the CPU.
   8 at 216 rows a shard, the rows and PCG + AMG counts of
   ``scripts/node_scaling.py`` on the JAX package's 8-device CPU mesh.
 - ``parity_report --fast``: a table whose counts equal the JAX package's
-  in ``data/golden/jax_counts.json`` (residuals to rel 1e-6, but for
-  ex8's rounding-decided FSAI variant), elasticity
-  marked skipped.
+  in ``data/golden/jax_counts.json`` (residuals to rel 1e-6, ex8's
+  adaptive-FSAI variant included), elasticity marked skipped.
 """
 
 import argparse
@@ -40,10 +39,6 @@ from hypredrive_tpu_torch.tools import node_scaling, parity_report, \
 torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-# ex8's fourth variant: its adaptive FSAI smoother's pattern is decided by
-# rounding (tests/test_torch_smoothers.py ``TIES``), so its residual
-# differs (3.4e-10 against 4.0e-10) at an equal count
-RESIDUAL_TIES = {("ex8.yml", 3)}
 
 
 def _script(name):
@@ -162,11 +157,8 @@ def test_parity_report_fast_matches_jax_counts(tmp_path):
     for case, ours in results.items():
         if ours == parity_report.SKIPPED:
             continue
-        for i, ((it_o, rr_o), (it_j, rr_j)) in enumerate(zip(ours,
-                                                             jax[case])):
+        for (it_o, rr_o), (it_j, rr_j) in zip(ours, jax[case]):
             assert it_o == it_j
-            if (case, i) in RESIDUAL_TIES:
-                continue
             # float64 summation order: rel 1e-6, and 1e-13 of ‖r0‖ where
             # a solve ends near the rounding floor (ex8 at 1e-9)
             assert rr_o == pytest.approx(rr_j, rel=1e-6, abs=1e-13)
