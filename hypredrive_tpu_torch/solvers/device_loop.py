@@ -101,6 +101,18 @@ def _add_counts(delta, sign=1):
 
 
 @contextlib.contextmanager
+def uncounted():
+    """Launches inside do not count: a timing loop or a comparison with a
+    plain version, not the work of a solve (every count ends as it began)."""
+    saved = _counts()
+    try:
+        yield
+    finally:
+        for f, n in zip(counted(), saved):
+            f.launches = n
+
+
+@contextlib.contextmanager
 def eager():
     """Run the solves inside on the card as the eager loop (the plain
     version the graphs are checked against); no graph is captured."""

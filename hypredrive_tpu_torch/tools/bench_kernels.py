@@ -23,11 +23,13 @@ share of it reached, and the device time of ``torch.sparse_csr_tensor @
 x`` on the same operand.  ``--exec-policy host`` runs the kernels' plain
 versions on the CPU, timed by the host's clock, with no bound.
 
-The helpers ``spmv_bytes``, ``operand_copies``, ``dia_as_csr`` and
-``library_spmv`` are also what ``chip_smoke.py``'s kernel rows use.
+One launch of each kernel per row counts on the kernels' launch counters
+(the row's correctness call, and the probe's); the timing loops count
+none.  ``spmv_row``, the measurement of one SpMV row, is also what
+``chip_smoke.py``'s kernel checks use.
 
 Usage: BK_NX=64 python -m hypredrive_tpu_torch.tools.bench_kernels
-           [--nx N] [--dtype float32|float64] [--exec-policy host]
+           [--exec-policy host]
 """
 
 from __future__ import annotations
@@ -41,9 +43,17 @@ import time
 import numpy as np
 
 from ..core.entry import add_exec_policy, device, replay_ms, synchronize
+from ..core.errors import HypredrvError
+from ..solvers.device_loop import uncounted
 
 HBM_TB_S = 3.35   # H100 SXM device-memory rate (NVIDIA data sheet)
 L2_BYTES = 50 * 2**20   # H100 SXM L2 cache (NVIDIA data sheet)
+BOUND_SHARE_MAX = 1.05  # a kernel faster than its bound: a wrong bound or timing
+
+
+def bound_ms(nbytes):
+    """The least time to move ``nbytes`` at the device-memory rate."""
+    return nbytes / (HBM_TB_S * 1e12) * 1e3
 
 
 def spmv_bytes(kind, E, itemsize):
@@ -104,9 +114,52 @@ def _host_ms(fns, reps=20):
     return (time.perf_counter() - t0) / reps * 1e3
 
 
+def spmv_row(op, x, run, library, nbytes, ref):
+    """One SpMV row: ``run(op, x)``, a kernel on operand ``op`` (a tuple of
+    tensors), against ``ref``, the product it must give; its time; the
+    time and error of ``library(op)``, one PyTorch call computing the same
+    product; on the card the bound and the share of it reached.  On the
+    card every timing is a graph replay over copies of op and x that fill
+    four times the L2, and a kernel faster than its bound raises; on the
+    CPU the host's clock over one copy, with no bound.  Only the first
+    call counts as a launch.  Returns (row, ops, xs): the copies, for
+    further timings over the same operands."""
+    on_card = x.device.type == "cuda"
+    copies = operand_copies(nbytes) if on_card else 1
+    ops = [op] + [tuple(t.clone() for t in op) for _ in range(copies - 1)]
+    xs = [x] + [x.clone() for _ in ops[1:]]
+    ref = ref.double()
+    scale = float(ref.abs().max()) or 1.0
+    err = float((run(op, x).double() - ref).abs().max())
+    timer = replay_ms if on_card else _host_ms
+    with uncounted():
+        ms = timer([lambda o=o, v=v: run(o, v) for o, v in zip(ops, xs)])
+    row = {"max_abs_err": err, "max_rel_err": err / scale, "device_ms": ms,
+           "bytes": nbytes, "operand_copies": len(ops),
+           "bound_ms": bound_ms(nbytes) if on_card else None,
+           "bound_by": "bytes",
+           "timer": "graph replay" if on_card else "host clock"}
+    row["bound_share"] = (None if row["bound_ms"] is None
+                          else row["bound_ms"] / ms)
+    try:
+        libs = [library(o) for o in ops]
+        yl = libs[0](x)
+        row["library_rel_err"] = float((yl.double() - ref).abs().max()) / scale
+        row["library_ms"] = timer([lambda f=f, v=v: f(v)
+                                   for f, v in zip(libs, xs)])
+    except RuntimeError as exc:   # no such call here, or not capturable
+        row["library_ms"] = None
+        row["library_error"] = str(exc)[:200]
+    if on_card and row["bound_share"] > BOUND_SHARE_MAX:
+        raise HypredrvError(f"{ms:.4f} ms beats the bound "
+                            f"{row['bound_ms']:.4f} ms: the bound or the "
+                            "timing is wrong")
+    return row, ops, xs
+
+
 class Bench:
     """The rows, timed on ``dev``: by graph replay over operand copies on
-    the card, by the host's clock on the CPU."""
+    the card, by the host's clock on the CPU; no timing counts a launch."""
 
     def __init__(self, dev, dtype):
         self.dev, self.dtype = dev, dtype
@@ -115,7 +168,8 @@ class Bench:
         self.rng = np.random.default_rng(0)
 
     def ms(self, fns):
-        return replay_ms(fns) if self.on_card else _host_ms(fns)
+        with uncounted():
+            return replay_ms(fns) if self.on_card else _host_ms(fns)
 
     def copies(self, nbytes):
         return operand_copies(nbytes) if self.on_card else 1
@@ -135,7 +189,7 @@ class Bench:
               f"{row['ms'] * 1e3:9.2f} us{rate}{bound}{lib}", flush=True)
 
     def _row(self, name, shape, ms, nbytes, **extra):
-        bound = nbytes / (HBM_TB_S * 1e12) * 1e3 if self.on_card else None
+        bound = bound_ms(nbytes) if self.on_card else None
         row = {"name": name, "shape": shape,
                "dtype": str(self.dtype).replace("torch.", ""), "ms": ms,
                "bytes": nbytes, "bound_ms": bound,
@@ -172,6 +226,8 @@ class Bench:
         x_host = self.rng.standard_normal(nc).astype(
             np.float32 if self.dtype == torch.float32 else np.float64)
         x = torch.as_tensor(x_host, device=self.dev)
+        ref = torch.as_tensor(A_part.astype(np.float64)
+                              @ x_host.astype(np.float64))
         if kind == "dia_spmv":
             offs = E.dia_offsets
             op = (E.dia_data,)
@@ -191,21 +247,12 @@ class Bench:
             def library(o):
                 return library_spmv(o[0].int(), o[1], o[2], E.shape)
             nnz = E.data.numel()
-        ops = [op] + [tuple(t.clone() for t in op)
-                      for _ in range(self.copies(nbytes) - 1)]
-        xs = [x] + [x.clone() for _ in ops[1:]]
-        y = run(ops[0], x).double().cpu().numpy()
-        ref = A_part.astype(np.float64) @ x_host.astype(np.float64)
-        rel = float(np.abs(y - ref).max() / (np.abs(ref).max() or 1.0))
-        ms = self.ms([lambda o=o, v=v: run(o, v) for o, v in zip(ops, xs)])
-        try:
-            libs = [library(o) for o in ops]
-            lib_ms = self.ms([lambda f=f, v=v: f(v)
-                              for f, v in zip(libs, xs)])
-        except RuntimeError:      # no such call here, or not capturable
-            lib_ms = None
-        return self._row(kind, shape, ms, nbytes, rel_err=rel, nnz=nnz,
-                         gnnz_s=nnz / (ms * 1e-3) / 1e9, library_ms=lib_ms)
+        m, _, _ = spmv_row(op, x, run, library, nbytes, ref.to(self.dev))
+        return self._row(kind, shape, m["device_ms"], nbytes,
+                         rel_err=m["max_rel_err"], nnz=nnz,
+                         gnnz_s=nnz / (m["device_ms"] * 1e-3) / 1e9,
+                         **{k: v for k, v in m.items()
+                            if k.startswith("library")})
 
     def matrix(self, label, E, A_host):
         """Each kernel part of E (DIA, CSR) against scipy."""
@@ -285,8 +332,8 @@ def probe(dev):
     return {"build_s": build_s, "launch_ok": ok}
 
 
-def run(nx=None, dtype="float32", policy="device"):
-    """Every row; returns {"probe", "levels", "rows"}."""
+def run(nx=64, dtype="float32", policy="device"):
+    """Every row on an nx³ Laplacian; returns {"probe", "levels", "rows"}."""
     import torch
 
     from ..config.sections import AMG_SCHEMA
@@ -295,7 +342,6 @@ def run(nx=None, dtype="float32", policy="device"):
     from ..precon.amg.hierarchy import setup_hierarchy
 
     dev = device(policy)
-    nx = int(nx or os.environ.get("BK_NX", "64"))
     dt = getattr(torch, dtype)
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     print(f"device={name} nx={nx} dtype={dtype}", flush=True)
@@ -341,13 +387,10 @@ def run(nx=None, dtype="float32", policy="device"):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--nx", type=int, default=None,
-                    help="grid size (default: $BK_NX, else 64)")
-    ap.add_argument("--dtype", choices=("float32", "float64"),
-                    default="float32")
     add_exec_policy(ap)
     args = ap.parse_args(argv)
-    out = run(args.nx, args.dtype, args.exec_policy)
+    out = run(int(os.environ.get("BK_NX", "64")), "float32",
+              args.exec_policy)
     return 0 if out["probe"]["launch_ok"] else 1
 
 

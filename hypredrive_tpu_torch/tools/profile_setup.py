@@ -12,7 +12,10 @@ The port of ``scripts/profile_setup.py``.  Breaks the bench's
   time per cycle (CUDA-graph replay);
 - host-to-device copies of 1, 16 and 64 MB, and the host time per matvec
   launch without a synchronise (in place of the JAX script's dispatch
-  latency over the TPU's link).
+  latency over the TPU's link);
+- the adaptive FSAI build of the same operator with its defaults (the
+  setup of AMG's ``ilu`` smoother, ex8's entry 3): the host's row solves
+  and the upload of G and Gᵀ, float64 as the CLI's solves.
 
 The JAX script's gather-plan building is TPU-only and has no counterpart.
 Every phase is a lap of one clock, so the phases add up to the total.
@@ -67,6 +70,7 @@ def run(n1: int = 64, policy: str = "device") -> dict:
     from ..precon.amg.cycle import amg_apply
     from ..precon.amg.interp import build_interpolation
     from ..precon.amg.strength import strength_graph
+    from ..precon.fsai import build_fsai_adaptive
 
     clock = Clock()
     dev = device(policy)
@@ -175,6 +179,13 @@ def run(n1: int = 64, policy: str = "device") -> dict:
     clock.lap("launch_probe")
     print(f"matvec launch (host, no sync): {launch_s * 1e6:.1f} us/call",
           flush=True)
+
+    # --- the adaptive FSAI build of the same operator ---
+    fsai = build_fsai_adaptive(A, device=dev)
+    synchronize(dev)
+    t_fsai = clock.lap("fsai_adaptive")
+    print(f"adaptive FSAI build (host row solves, upload): {t_fsai:.3f}s  "
+          f"G nnz={fsai.G.nnz}", flush=True)
     total = clock.total()
     print(f"total: {total:.3f}s (the sum of the phases above)", flush=True)
     return {"device": name, "rows": A.shape[0], "nnz": int(A.nnz),
@@ -183,7 +194,8 @@ def run(n1: int = 64, policy: str = "device") -> dict:
             "upload_bytes": upload, "setup_hierarchy_s": t_setup,
             "first_cycle_s": t_first, "cycle_s": t_cycle,
             "cycle_timing": how, "h2d_s": copies,
-            "launch_s": launch_s, "phases": dict(clock.laps),
+            "launch_s": launch_s, "fsai_adaptive_s": t_fsai,
+            "fsai_nnz": int(fsai.G.nnz), "phases": dict(clock.laps),
             "total_s": total}
 
 

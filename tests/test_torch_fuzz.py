@@ -55,7 +55,8 @@ def test_corpus_covers_every_mode_of_the_jax_tier():
                 if f"{os.sep}fuzz_corpus{os.sep}" in p]) == 24
 
 
-def test_seeded_fuzz_run_finds_no_crash():
+def test_seeded_fuzz_run_finds_no_crash(monkeypatch, tmp_path):
+    monkeypatch.setattr(fuzz_loop, "CORPUS_DIR", str(tmp_path))
     with contextlib.redirect_stdout(io.StringIO()) as buf:
         rc = fuzz_loop.main(["--seconds", "2", "--seed", "0",
                              "--exec-policy", "host"])
@@ -63,6 +64,7 @@ def test_seeded_fuzz_run_finds_no_crash():
     assert rc == 0, out
     assert out.count("crashes=0") == len(fuzz_loop.TARGETS)
     assert "OK: no crashes" in out
+    assert os.listdir(tmp_path) == []
 
 
 def test_crash_is_minimized_into_the_port_corpus(monkeypatch, tmp_path):

@@ -15,7 +15,8 @@ themselves, on the CPU in float64.
   without matplotlib.
 - ``spmat_reorder`` writes files byte-equal to the script's; ``spyplot``
   prints the script's line.
-- ``bench_kernels`` runs its rows on the CPU at nx = 8.
+- ``bench_kernels`` runs its rows on the CPU at nx = 8, through ``run``
+  and as ``BK_NX=8 ... --exec-policy host``.
 - Without a card and without ``--exec-policy host`` every tool raises
   ``HypredrvError``; none imports jax, the JAX package or ``scripts/``.
 """
@@ -194,6 +195,17 @@ def test_bench_kernels_on_the_cpu():
     assert "csr_spmv  A1 " in buf.getvalue()
 
 
+def test_bench_kernels_main_on_the_cpu(monkeypatch):
+    """The tool as a user runs it: ``BK_NX=8`` and ``--exec-policy host``
+    (float32 rows against scipy's float64 product)."""
+    monkeypatch.setenv("BK_NX", "8")
+    text = _run_main(bench_kernels.main, ["--exec-policy", "host"])
+    assert "device=cpu nx=8 dtype=float32" in text
+    assert "probe: kernels built" in text and ": OK" in text
+    rels = [float(t.split()[0]) for t in text.split("  rel ")[1:]]
+    assert len(rels) == 3 and max(rels) <= 1e-6
+
+
 def test_bench_kernels_helpers():
     """The least bytes of a DIA and a CSR part, the L2-filling copies and
     the library product of a DIA part, on a small operator."""
@@ -219,13 +231,14 @@ _NEED_CARD = {
     "spmat_reorder": [os.path.join(REPO, "data", "ps3d10pt7", "np1",
                                    "IJ.out.A"), "-o", "unused"],
     "fuzz_loop": ["--seconds", "1"],
-    "bench_kernels": ["--nx", "8"],
+    "bench_kernels": [],
 }
 
 
 @pytest.mark.parametrize("tool", TOOLS)
 def test_tool_needs_the_card_without_host(tool, monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setenv("BK_NX", "8")
     monkeypatch.chdir(tmp_path)
     mod = importlib.import_module(f"hypredrive_tpu_torch.tools.{tool}")
     with pytest.raises(HypredrvError, match="CUDA"):

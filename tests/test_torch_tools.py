@@ -2,8 +2,9 @@
 package on the CPU.
 
 - ``profile_setup``: its hierarchy has the JAX package's level count, its
-  host loop the JAX host functions' level count, and its phases (laps of
-  one clock) add up to its total.
+  host loop the JAX host functions' level count, its adaptive FSAI build
+  the JAX package's G entries, and its phases (laps of one clock) add up
+  to its total.
 - ``node_scaling``: on ``make_mesh(k, device="cpu")`` for k = 1, 2, 4 and
   8 at 216 rows a shard, the rows and PCG + AMG counts of
   ``scripts/node_scaling.py`` on the JAX package's 8-device CPU mesh.
@@ -32,6 +33,8 @@ from hypredrive_tpu.precon.amg.hierarchy import \
 from hypredrive_tpu.precon.amg.interp import \
     build_interpolation as jax_interp
 from hypredrive_tpu.precon.amg.strength import strength_graph as jax_strength
+from hypredrive_tpu.precon.fsai import \
+    build_fsai_adaptive as jax_fsai_adaptive
 from hypredrive_tpu_torch.core.errors import HypredrvError
 from hypredrive_tpu_torch.tools import node_scaling, parity_report, \
     profile_setup
@@ -73,6 +76,7 @@ def test_profile_setup_matches_jax(n1):
     st = jax_setup_hierarchy(A, JAX_AMG_SCHEMA.defaults(), dtype=np.float32)
     assert r["levels"] == len(st.levels)
     assert r["host_levels"] == _jax_host_levels(A)
+    assert r["fsai_nnz"] == jax_fsai_adaptive(A)[0].to_csr().nnz
     # every phase is a lap of one clock: they add up to the total
     assert sum(r["phases"].values()) == pytest.approx(r["total_s"],
                                                       rel=1e-12)
