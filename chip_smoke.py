@@ -93,7 +93,16 @@ Phases (any failure exits non-zero and prints no result line):
      also ±1 of the one-device count), dist_mgr64 (the nx = 64
      multiphysics system, GMRES(30) + the mesh MGR with masked AMG and
      Jacobi F-relaxations, then BiCGSTAB + block-Jacobi ILU(0) to 1e-2) and
-     dist_ams32 (maxwell_edge_system(32), PCG + AMS on the mesh);
+     dist_ams32 (maxwell_edge_system(32), PCG + AMS on the mesh); then
+     dist_multicard: one rank per card (world = the largest of 1, 2, 4
+     and 8 at most the card count), started by this script with
+     torchrun's environment and joined over NCCL, each rank running
+     dist_lap128 and dist_mgr64 on its shards of 8 with the halos and
+     dot products as collectives inside the captured graphs (counts and
+     histories against the same JAX numbers; per rank the launches, halo
+     bytes per iteration, warm wall and device time, peak RSS; at world
+     1, which exercises no cross-card exchange, two gloo ranks on cuda:0
+     also run the dryrun stacks eagerly);
    - the entry points around the package, each pinned to the JAX
      package's numbers in ``data/golden/jax_counts.json``: bench
      (``hypredrive_tpu_torch.bench`` at 64³ float32, its JSON line printed;
@@ -164,10 +173,13 @@ Prints the kernel table as one JSON line, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``.  Details go to
 ``build/chip_smoke.json``.
 
-``--baseline-csr FILE`` also builds FILE, an earlier ``csr_spmv.cu`` with
-the row-group C interface (lanes per row as its argument), into
-``build/csr_baseline/`` and times it at every CSR shape beside the current
-kernel, in the order current, earlier, earlier, current.
+``--only PATH...`` runs the environment phase and the named paths of
+step 2 alone (no kernel table), e.g. ``--only dist_multicard`` on four
+cards.  ``--baseline-csr FILE`` also builds FILE, an earlier
+``csr_spmv.cu`` with the row-group C interface (lanes per row as its
+argument), into ``build/csr_baseline/`` and times it at every CSR shape
+beside the current kernel, in the order current, earlier, earlier,
+current.
 """
 
 import ctypes
@@ -2134,16 +2146,18 @@ def mesh_solve(core, D, pc, b, rtol, max_iter):
 
     extra = {gmres_core: (30, False), pcg_core: (True, 0)}.get(core, ())
     return core(D.matvec, pc, b, torch.zeros_like(b), rtol, 0.0, max_iter,
-                *extra)
+                *extra, group=D.mesh.reduce_group)
 
 
-def check_mesh_solve(key, A, b_host, out, ref, bound):
+def check_mesh_solve(key, A, b_host, out, ref, bound, mesh=None):
     """Count equal to the JAX package's mesh count, history within
     DIST_HISTORY_TOL of its, finite x and host relative residual ≤
-    bound; the numbers for the report."""
+    bound; the numbers for the report.  On a mesh across ranks x is
+    gathered from every rank first."""
     import numpy as np
 
-    x = out[0][:A.shape[0]].cpu().numpy()
+    x = out[0] if mesh is None else mesh.gather(out[0])
+    x = x[:A.shape[0]].cpu().numpy()
     iters = int(out[1])
     hist = [float(h) for h in out[4][:iters + 1]]
     rel = float(np.linalg.norm(b_host - A @ x) / np.linalg.norm(b_host))
@@ -2388,6 +2402,283 @@ def phase_dist_kernels(report):
     report["kernel_checks"].extend(checks.rows)
     del D, E
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# the mesh across cards: one rank per card
+# ---------------------------------------------------------------------------
+
+MULTICARD_WORLDS = (1, 2, 4, 8)
+MULTICARD_TIMEOUT_S = 480
+
+
+def multicard_world():
+    """The largest of 1, 2, 4 and 8 that is at most the cards there are."""
+    import torch
+
+    n = torch.cuda.device_count()
+    return max(w for w in MULTICARD_WORLDS if w <= n)
+
+
+def rank_solves(key, A, b_host, mesh, solve, ref, bound):
+    """One rank's first (capturing) and warm solve of a mesh path, held
+    to the JAX package's mesh count and history; then, uncounted, the
+    same solve as the eager body (its count, and the halo bytes this rank
+    sends) and under the profiler (the warm solve's device time)."""
+    from hypredrive_tpu_torch.parallel import DistEllMatrix
+    from hypredrive_tpu_torch.solvers import device_loop as dl
+
+    out, first_s = timed(solve)
+    out, warm_s = timed(solve)
+    r = check_mesh_solve(key, A, b_host, out, ref, bound, mesh)
+    with uncounted(), dl.eager():
+        DistEllMatrix.halo_bytes = 0
+        eager = solve()
+        halo = DistEllMatrix.halo_bytes
+    check(int(eager[1]) == r["iters"],
+          f"{key}: the eager body took {int(eager[1])} iterations, the "
+          f"graphs {r['iters']}")
+    with uncounted():
+        prof = profile_run(solve)
+    r.update(first_s=first_s, warm_s=warm_s,
+             warm_device_s=prof["device_busy_s"],
+             profiled_wall_s=prof["wall_s"], halo_bytes_solve=halo,
+             halo_bytes_per_iter=halo / max(1, r["iters"]))
+    return r
+
+
+def rank_lap128(mesh):
+    """dist_lap128 on this rank's shards: the 128³ Laplacian, the
+    distributed AMG setup from per-shard parts, PCG to 1e-8."""
+    import numpy as np
+    import torch
+    from hypredrive_tpu_torch.config.sections import AMG_SCHEMA
+    from hypredrive_tpu_torch.ops.csr import laplacian_3d_7pt
+    from hypredrive_tpu_torch.parallel import pad_vector
+    from hypredrive_tpu_torch.parallel.dist_setup import split_rows
+    from hypredrive_tpu_torch.precon.amg.cycle import amg_apply
+    from hypredrive_tpu_torch.precon.amg.hierarchy import setup_hierarchy
+    from hypredrive_tpu_torch.solvers.pcg import pcg_core
+
+    ref = jax_counts("dist_lap128")
+    A = laplacian_3d_7pt(128)
+    state, setup_s = timed(lambda: setup_hierarchy(
+        split_rows(A, N_SHARDS), AMG_SCHEMA.defaults(), dtype=torch.float64,
+        mesh=mesh))
+    rows = [lv.A.shape[0] for lv in state.levels]
+    check(rows == ref["level_rows"], f"lap128: levels {rows}")
+    D = state.levels[0].A
+    b = pad_vector(np.ones(A.shape[0]), D.shape[0], mesh)
+    r = rank_solves("dist_multicard lap128", A, np.ones(A.shape[0]), mesh,
+                    lambda: mesh_solve(pcg_core, D,
+                                       lambda r: amg_apply(state, r), b,
+                                       1e-8, 100), ref, 1e-8)
+    r["setup_s"] = setup_s
+    return r
+
+
+def rank_mgr64(mesh):
+    """dist_mgr64 on this rank's shards: GMRES(30) + the mesh MGR to 1e-6,
+    then BiCGSTAB + block-Jacobi ILU(0) to 1e-2."""
+    import numpy as np
+    import torch
+    from hypredrive_tpu_torch.config.sections import MGR_SCHEMA
+    from hypredrive_tpu_torch.ops.csr import multiphysics_fv_system
+    from hypredrive_tpu_torch.parallel import pad_vector
+    from hypredrive_tpu_torch.parallel.dist_precon import (build_bj_ilu_dist,
+                                                           setup_mgr_dist)
+    from hypredrive_tpu_torch.parallel.dist_setup import split_rows
+    from hypredrive_tpu_torch.precon.ilu import tri_jacobi_apply
+    from hypredrive_tpu_torch.precon.mgr import mgr_apply
+    from hypredrive_tpu_torch.solvers.bicgstab import bicgstab_core
+    from hypredrive_tpu_torch.solvers.gmres import gmres_core
+
+    ref = jax_counts("dist_mgr64")
+    A, dofmap = multiphysics_fv_system(64, 3, contrast=0.3, coupling=0.12,
+                                       convection=0.08)
+    parts = split_rows(A, N_SHARDS)
+    sm, setup_s = timed(lambda: setup_mgr_dist(
+        parts, MGR_SCHEMA.parse(DIST_MGR64, "mgr", []), dofmap, mesh,
+        dtype=torch.float64))
+    D = sm.levels[0].A
+    ones = np.ones(A.shape[0])
+    b = pad_vector(ones, D.shape[0], mesh)
+    mgr = rank_solves("dist_multicard mgr64 GMRES + MGR", A, ones, mesh,
+                      lambda: mesh_solve(gmres_core, D,
+                                         lambda r: mgr_apply(sm, r), b,
+                                         1e-6, 100), ref["mgr"], 1e-6)
+    mgr["setup_s"] = setup_s
+    si, ilu_setup_s = timed(lambda: build_bj_ilu_dist(
+        parts, mesh, dtype=torch.float64))
+    out, ilu_s = timed(lambda: mesh_solve(
+        bicgstab_core, D, lambda r: tri_jacobi_apply(si, r), b, 1e-2, 200))
+    ilu = check_mesh_solve("dist_multicard mgr64 BiCGSTAB + bj-ILU", A, ones,
+                           out, ref["bj_ilu"], 1e-2, mesh)
+    ilu.update(setup_s=ilu_setup_s, solve_s=ilu_s)
+    return {"mgr": mgr, "bj_ilu": ilu}
+
+
+def rank_dryrun(mesh):
+    """The three dryrun stacks on this rank's shards (eager over gloo),
+    against the JAX package's 8-device mesh."""
+    from hypredrive_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    ref = {s["stack"]: s for s in jax_counts("dist_dryrun8")["stacks"]}
+    stacks = dryrun_multichip(mesh)
+    for s in stacks:
+        r = ref[s["stack"]]
+        dev = history_dev(s["history"], r["history"])
+        check(s["iters"] == r["iters"] and s["converged"]
+              and dev <= DIST_HISTORY_TOL,
+              f"dryrun {s['stack']}: {s['iters']} iterations (JAX "
+              f"{r['iters']}), history dev {dev:.3e}")
+        s["history_rel_dev_vs_jax"] = dev
+    return stacks
+
+
+def multicard_worker(mode, out_path):
+    """One rank, started by phase_dist_multicard with torchrun's
+    environment: ``nccl`` runs dist_lap128 and dist_mgr64 on 8 shards over
+    the ranks, one card each; ``gloo`` the dryrun stacks with every rank
+    on cuda:0.  Writes its results (or its error) to ``out_path``."""
+    import resource
+
+    import torch
+    from hypredrive_tpu_torch.core import runtime
+    from hypredrive_tpu_torch.parallel import make_mesh
+
+    res = {"mode": mode, "rank": int(os.environ["RANK"])}
+    try:
+        runtime.initialize(distributed=True, backend=mode)
+        mesh = make_mesh(N_SHARDS)
+        res.update(world=mesh.world, device=str(mesh.device),
+                   shards=list(mesh.shard_range))
+        counters = launch_counters()
+        for f in counters.values():
+            f.launches = 0
+        if mode == "gloo":
+            res["dryrun"] = rank_dryrun(mesh)
+        else:
+            res["lap128"] = rank_lap128(mesh)
+            res["mgr64"] = rank_mgr64(mesh)
+        res["launches"] = {k: f.launches for k, f in counters.items()}
+        torch.cuda.synchronize()
+    except Exception as exc:  # the parent reports every rank's failure
+        res["error"] = f"{type(exc).__name__}: {exc}"
+    res["peak_rss_mib"] = resource.getrusage(
+        resource.RUSAGE_SELF).ru_maxrss / 1024
+    with open(out_path, "w") as f:
+        json.dump(res, f)
+    if "error" not in res:
+        runtime.finalize()
+    return 1 if "error" in res else 0
+
+
+def run_ranks(world, mode):
+    """Start ``world`` ranks of this script as torchrun would (RANK,
+    WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT); every rank's
+    results.  Each rank's output goes to build/multicard_<mode>_<r>.log;
+    ranks still running at the time limit are killed."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    os.makedirs("build", exist_ok=True)
+    procs, paths, logs = [], [], []
+    for r in range(world):
+        paths.append(os.path.join("build", f"multicard_{mode}_{r}.json"))
+        logs.append(os.path.join("build", f"multicard_{mode}_{r}.log"))
+        if os.path.exists(paths[-1]):
+            os.remove(paths[-1])
+        env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(world),
+                   LOCAL_RANK=str(r if mode == "nccl" else 0),
+                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+        with open(logs[-1], "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--rank-worker",
+                 mode, paths[-1]], env=env, stdout=log,
+                stderr=subprocess.STDOUT))
+    deadline = time.monotonic() + MULTICARD_TIMEOUT_S
+    for p in procs:
+        try:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            break
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    outs, errors = [], []
+    for r, (p, path, log) in enumerate(zip(procs, paths, logs)):
+        res = None
+        if os.path.exists(path):
+            with open(path) as f:
+                res = json.load(f)
+        if res is None or "error" in res or p.returncode != 0:
+            with open(log) as f:
+                tail = f.read()[-1500:]
+            what = ("no result" if res is None else res.get(
+                "error", "its result written, then no exit in time"))
+            errors.append(f"rank {r} ({mode}, exit {p.returncode}): "
+                          f"{what}\n{tail}")
+        outs.append(res)
+    check(not errors, "dist_multicard: " + "\n".join(errors))
+    return outs
+
+
+def phase_dist_multicard(report):
+    """The mesh across cards: as many ranks as there are cards (the
+    largest of 1, 2, 4 and 8 at most the card count), one card each,
+    joined over NCCL; each rank runs dist_lap128 and dist_mgr64 on its
+    shards of 8 in all, the halos and dot products collectives inside the
+    captured Krylov graphs: the JAX package's 8-device counts 11 and
+    81 + 24, histories within DIST_HISTORY_TOL.  On one card there is no
+    cross-card exchange; the cross-rank exchange is then checked by two
+    gloo ranks on cuda:0 (eager: gloo's collectives cannot be captured)
+    running the three dryrun stacks."""
+    world = multicard_world()
+    runs = run_ranks(world, "nccl")
+    rep = report["dist_multicard"] = {"world": world, "ranks": runs}
+    total = {k: sum(r["launches"][k] for r in runs)
+             for k in launch_counters()}
+    print(f"dist_multicard: world {world} ({world} rank(s), one card each, "
+          f"NCCL), 8 shards in all")
+    if world == 1:
+        print("dist_multicard: world 1 (one card): no cross-card exchange "
+              "was exercised; the cross-rank exchange is checked below by "
+              "2 gloo ranks on cuda:0, eager")
+    for r in runs:
+        lap, mgr, ilu = r["lap128"], r["mgr64"]["mgr"], r["mgr64"]["bj_ilu"]
+        print(f"  rank {r['rank']} on {r['device']} (shards {r['shards']}): "
+              f"lap128 {lap['iters']} iterations, warm {lap['warm_s']:.4f} "
+              f"s wall / {lap['warm_device_s']:.4f} s device, halo "
+              f"{lap['halo_bytes_per_iter']:.0f} B/iteration; mgr64 GMRES "
+              f"{mgr['iters']} iterations, warm {mgr['warm_s']:.4f} s wall "
+              f"/ {mgr['warm_device_s']:.4f} s device, halo "
+              f"{mgr['halo_bytes_per_iter']:.0f} B/iteration; bj-ILU "
+              f"BiCGSTAB {ilu['iters']}; setup {lap['setup_s']:.1f} / "
+              f"{mgr['setup_s']:.1f} s; peak RSS "
+              f"{r['peak_rss_mib']:.0f} MiB; launches {r['launches']}")
+    print(f"  launches summed over the ranks: {total}")
+    rep["launches_sum"] = dict(total)
+    if world == 1:
+        gl = run_ranks(2, "gloo")
+        rep["gloo_ranks"] = gl
+        for r in gl:
+            print(f"  gloo rank {r['rank']} on {r['device']} (shards "
+                  f"{r['shards']}): dryrun "
+                  + ", ".join(f"{s['stack']} {s['iters']} (history dev "
+                              f"{s['history_rel_dev_vs_jax']:.3e})"
+                              for s in r["dryrun"])
+                  + f"; launches {r['launches']}")
+            for k in total:
+                total[k] += r["launches"][k]
+        check(all(r["dryrun"] == gl[0]["dryrun"] for r in gl),
+              "dist_multicard: the gloo ranks' records differ")
+    # the ranks' launches are this path's
+    for k, f in launch_counters().items():
+        f.launches += total[k]
 
 
 def phase_bench(report):
@@ -2893,6 +3184,7 @@ PATHS = (("ex1", phase_ex1, BOTH), ("lap64", phase_64, BOTH),
          ("dist_lap128", phase_dist_lap128, BOTH),
          ("dist_mgr64", phase_dist_mgr64, ARNOLDI),
          ("dist_ams32", phase_dist_ams32, BOTH),
+         ("dist_multicard", phase_dist_multicard, ARNOLDI),
          ("bench", phase_bench, BOTH),
          ("flagship", phase_flagship, BOTH),
          ("profile_solve", phase_profile_solve, ARNOLDI),
@@ -2908,10 +3200,16 @@ PATHS = (("ex1", phase_ex1, BOTH), ("lap64", phase_64, BOTH),
 def main() -> int:
     args = sys.argv[1:]
     baseline_src = None
+    only = None
     if args[:1] == ["--baseline-csr"] and len(args) == 2:
         baseline_src = os.path.abspath(args[1])
+    elif args[:1] == ["--only"] and len(args) > 1:
+        only = args[1:]
+    elif args[:1] == ["--rank-worker"] and len(args) == 3:
+        pass
     elif args:
-        print("usage: chip_smoke.py [--baseline-csr FILE]", file=sys.stderr)
+        print("usage: chip_smoke.py [--baseline-csr FILE | --only PATH...]",
+              file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
     os.chdir(REPO)
@@ -2921,6 +3219,14 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 1
+    if args[:1] == ["--rank-worker"]:
+        return multicard_worker(args[1], args[2])
+    paths = PATHS
+    if only is not None:
+        paths = tuple(p for p in PATHS if p[0] in only)
+        if len(paths) != len(set(only)):
+            print(f"chip_smoke: unknown paths in {only}", file=sys.stderr)
+            return 2
     counters = launch_counters()
 
     report = {}
@@ -2942,7 +3248,7 @@ def main() -> int:
         run("baseline", lambda _: load_baseline(baseline_src))
     if not failures:
         launches = {k: 0 for k in counters}
-        for name, fn, kernels_run in PATHS:
+        for name, fn, kernels_run in paths:
             # each path's own count: zeroed just before, read just after
             for f in counters.values():
                 f.launches = 0
@@ -2956,6 +3262,15 @@ def main() -> int:
                     failures.append(f"launches: {name} never launched {k}")
         report["launches"] = launches
         print(f"main-path kernel launches: {launches}")
+    if only is not None:
+        # the named paths alone: their checks and launches, no kernel table
+        print(report.get("nvidia_smi", ""))
+        if failures:
+            print("chip_smoke FAILED:\n  " + "\n  ".join(failures),
+                  file=sys.stderr)
+        print(json.dumps({"ok": not failures, "only": only}))
+        return 1 if failures else 0
+    if not failures:
         for name, key, fn in (("kernels", "lap128_state", phase_kernels),
                               ("mgr_kernels", "mgr64_state",
                                phase_mgr_kernels),

@@ -38,7 +38,8 @@ def dist_matrix(D, mesh, dtype: torch.dtype = torch.float64):
     """The JAX package's ``DistEllMatrix`` as this package's on ``mesh``:
     each shard's local block rebuilt from its stacked DIA, ELL and COO
     tail arrays (in x_ext columns), with the same ``send_idx``
-    schedule."""
+    schedule; on a mesh across ranks the result holds this rank's slice
+    of the shards, as the port's own setup would."""
     from .parallel.dist_matrix import DistEllMatrix
 
     n_sh = mesh.n_shards
@@ -63,8 +64,7 @@ def dist_matrix(D, mesh, dtype: torch.dtype = torch.float64):
         loc.sum_duplicates()
         loc.sort_indices()
         locals_ext.append(loc)
-    send_idx = tuple(torch.tensor(np.array(i), dtype=torch.int64,
-                                  device=mesh.device) for i in D.send_idx)
+    send_idx = tuple(np.array(i, dtype=np.int64) for i in D.send_idx)
     return DistEllMatrix.from_local(
         locals_ext, send_idx, tuple(D.offsets), mesh, D.shape, D.orig_shape,
         int(D.nnz), int(D.local_max), dtype)

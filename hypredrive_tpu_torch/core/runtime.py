@@ -7,8 +7,11 @@ live driver handles, so that ``finalize`` can sweep leaked objects.
 
 ``initialize(distributed=True)`` calls
 ``torch.distributed.init_process_group`` (the multi-process analogue of
-MPI_Init, as the JAX package calls ``jax.distributed.initialize``);
-``finalize`` destroys the group.
+MPI_Init, as the JAX package calls ``jax.distributed.initialize``): one
+rank per card, NCCL with a card and gloo without one; the group is then
+the default of ``parallel.make_mesh``.  ``finalize`` runs the hooks that
+higher layers registered with :func:`at_finalize`, then destroys the
+group.
 """
 
 from __future__ import annotations
@@ -16,12 +19,13 @@ from __future__ import annotations
 import atexit
 import os
 import weakref
-from typing import Optional
+from typing import Callable, Optional
 
 _state = {
     "initialized": False,
     "distributed": False,
     "live": None,  # weak set of live driver objects
+    "hooks": [],   # teardown callables run by finalize, in order
 }
 
 
@@ -33,10 +37,12 @@ def initialize(distributed: Optional[bool] = None, **dist_kwargs) -> None:
     """Initialize the runtime (ref: HYPREDRV_Initialize,
     src/HYPREDRV.c:915).
 
-    ``distributed=True`` calls ``torch.distributed.init_process_group(
-    **dist_kwargs)``; the backend, address, world size and rank are the
-    caller's.  By default it does so only when torchrun's ``MASTER_ADDR``
-    and ``WORLD_SIZE`` are set (as the JAX package reads
+    ``distributed=True`` makes ``cuda:LOCAL_RANK`` the current device
+    (with a card) and calls ``torch.distributed.init_process_group(
+    **dist_kwargs)``; the backend defaults to NCCL with a card and gloo
+    without one, the address, world size and rank to torchrun's
+    environment.  By default it does so only when torchrun's
+    ``MASTER_ADDR`` and ``WORLD_SIZE`` are set (as the JAX package reads
     ``JAX_COORDINATOR_ADDRESS``).  A second call is a no-op."""
     if _state["initialized"]:
         return
@@ -45,8 +51,13 @@ def initialize(distributed: Optional[bool] = None, **dist_kwargs) -> None:
         distributed = bool(os.environ.get("MASTER_ADDR")
                            and os.environ.get("WORLD_SIZE"))
     if distributed:
+        import torch
         import torch.distributed as dist
 
+        card = torch.cuda.is_available()
+        if card:
+            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+        dist_kwargs.setdefault("backend", "nccl" if card else "gloo")
         dist.init_process_group(**dist_kwargs)
         _state["distributed"] = True
     _state["initialized"] = True
@@ -64,6 +75,14 @@ def unregister_live(obj) -> None:
         live.discard(obj)
 
 
+def at_finalize(fn: Callable[[], None]) -> None:
+    """Have ``finalize`` call ``fn`` (once, however often it is
+    registered) after the live-object sweep and before the process group
+    is destroyed: what holds the group's resources lets go there."""
+    if fn not in _state["hooks"]:
+        _state["hooks"].append(fn)
+
+
 def finalize() -> None:
     """Destroy leaked live objects and shut down
     (ref: hypredrv_RuntimeDestroyAllLiveObjects,
@@ -76,9 +95,17 @@ def finalize() -> None:
             except Exception:  # one failed destroy must not stop the sweep
                 pass
         live.clear()
+    for fn in _state["hooks"]:
+        fn()
     if _state["distributed"]:
+        import gc
+
+        import torch
         import torch.distributed as dist
 
+        gc.collect()
+        if torch.cuda.is_available() and torch.cuda.is_initialized():
+            torch.cuda.synchronize()
         if dist.is_initialized():
             dist.destroy_process_group()
         _state["distributed"] = False

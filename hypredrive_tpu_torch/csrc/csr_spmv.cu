@@ -78,6 +78,7 @@ constexpr int kBatch = 4;        // x gathers a lane keeps in flight
 constexpr int kRowsPerThread = kTileRows / kThreads;  // one-lane rows
 static_assert(kTileRows % kThreads == 0, "one-lane rows cover the tile");
 constexpr int kBlockTiles = 64;  // most tiles one block walks
+constexpr int kMaxDevices = 64;  // cards one process may launch on
 
 // shared-memory bytes of one ring slot: each span may start up to 16 bytes
 // before its first element (the alignment skew)
@@ -415,12 +416,20 @@ int launch(const void* indptr, const void* indices, const void* data,
   (void)cudaGetLastError();  // clear any stale error before this launch
   if (n_rows == 0) return 0;
   constexpr int smem = kStages * slot_bytes<T>();
-  static int64_t grid_cap = 0;  // SMs x resident blocks, found on first use
+  // per card: SMs x resident blocks and the shared-memory opt-in, found on
+  // the first launch there (the caller makes the operands' card current)
+  static int64_t grid_caps[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t de = cudaGetDevice(&dev);
+  if (de != cudaSuccess) return static_cast<int>(de);
+  if (dev < 0 || dev >= kMaxDevices) {
+    return static_cast<int>(cudaErrorInvalidDevice);
+  }
+  int64_t& grid_cap = grid_caps[dev];
   if (grid_cap == 0) {
     cudaError_t e = cudaFuncSetAttribute(
         csr_spmv_tiled<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    int dev = 0, sms = 0, per_sm = 0;
-    if (e == cudaSuccess) e = cudaGetDevice(&dev);
+    int sms = 0, per_sm = 0;
     if (e == cudaSuccess) {
       e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     }

@@ -80,6 +80,8 @@ constexpr int kBatch = 8;               // operands loaded ahead of a chain run
 template <typename T>
 __device__ __forceinline__ T abs_of(T v) { return v < T(0) ? -v : v; }
 
+// the current card's opt-in limit: the wrapper makes the operands' card
+// current, so this is the limit of the card the kernel launches on
 int optin_smem_bytes(int* bytes) {
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);

@@ -118,10 +118,11 @@ def csr_spmv(indptr: torch.Tensor, indices: torch.Tensor,
         if out is None else out
     fn = (kernels.lib().hdtt_csr_spmv_f32 if x.dtype == torch.float32
           else kernels.lib().hdtt_csr_spmv_f64)
-    rc = fn(indptr.data_ptr(), indices.data_ptr(), data.data_ptr(),
-            x.data_ptr(), y.data_ptr(), n_rows, tiles.data_ptr(),
-            tiles.shape[1] - 1, int(out is not None),
-            torch.cuda.current_stream(x.device).cuda_stream)
+    with torch.cuda.device(x.device):   # launch on x's card
+        rc = fn(indptr.data_ptr(), indices.data_ptr(), data.data_ptr(),
+                x.data_ptr(), y.data_ptr(), n_rows, tiles.data_ptr(),
+                tiles.shape[1] - 1, int(out is not None),
+                torch.cuda.current_stream(x.device).cuda_stream)
     kernels.check(rc, "csr_spmv")
     csr_spmv.launches += 1
     return y

@@ -71,9 +71,10 @@ def dia_spmv(dia: torch.Tensor, offsets: Sequence[int], x: torch.Tensor,
     offs = (ctypes.c_int32 * len(offsets))(*offsets)
     fn = (kernels.lib().hdtt_dia_spmv_f32 if x.dtype == torch.float32
           else kernels.lib().hdtt_dia_spmv_f64)
-    rc = fn(dia.data_ptr(), ctypes.addressof(offs), len(offsets),
-            x.data_ptr(), y.data_ptr(), n_rows, n_cols,
-            torch.cuda.current_stream(x.device).cuda_stream)
+    with torch.cuda.device(x.device):   # launch on x's card
+        rc = fn(dia.data_ptr(), ctypes.addressof(offs), len(offsets),
+                x.data_ptr(), y.data_ptr(), n_rows, n_cols,
+                torch.cuda.current_stream(x.device).cuda_stream)
     kernels.check(rc, "dia_spmv")
     dia_spmv.launches += 1
     return y

@@ -141,12 +141,13 @@ def givens_update(H, cs, sn, g, col, j: int, active, norm, thr, done, hist,
                                    done, hist, hist_base)
     if H.device.type != "cuda":
         raise ValueError(f"givens_update: unsupported device {H.device}")
-    rc = _fn("givens_update", H.dtype)(
-        H.data_ptr(), cs.data_ptr(), sn.data_ptr(), g.data_ptr(),
-        col.data_ptr(), j, m, active.data_ptr(), norm.data_ptr(),
-        thr.data_ptr(), done.data_ptr(), hist.data_ptr(),
-        hist_base.data_ptr(), hist.shape[0],
-        torch.cuda.current_stream(H.device).cuda_stream)
+    with torch.cuda.device(H.device):   # launch on H's card
+        rc = _fn("givens_update", H.dtype)(
+            H.data_ptr(), cs.data_ptr(), sn.data_ptr(), g.data_ptr(),
+            col.data_ptr(), j, m, active.data_ptr(), norm.data_ptr(),
+            thr.data_ptr(), done.data_ptr(), hist.data_ptr(),
+            hist_base.data_ptr(), hist.shape[0],
+            torch.cuda.current_stream(H.device).cuda_stream)
     kernels.check(rc, "givens_update")
     givens_update.launches += 1
 
@@ -164,9 +165,11 @@ def hessenberg_backsolve(H, g, y, jcount, active) -> None:
     if H.device.type != "cuda":
         raise ValueError(f"hessenberg_backsolve: unsupported device "
                          f"{H.device}")
-    rc = _fn("hessenberg_backsolve", H.dtype)(
-        H.data_ptr(), g.data_ptr(), y.data_ptr(), m, jcount.data_ptr(),
-        active.data_ptr(), torch.cuda.current_stream(H.device).cuda_stream)
+    with torch.cuda.device(H.device):   # launch on H's card
+        rc = _fn("hessenberg_backsolve", H.dtype)(
+            H.data_ptr(), g.data_ptr(), y.data_ptr(), m, jcount.data_ptr(),
+            active.data_ptr(),
+            torch.cuda.current_stream(H.device).cuda_stream)
     kernels.check(rc, "hessenberg_backsolve")
     hessenberg_backsolve.launches += 1
 

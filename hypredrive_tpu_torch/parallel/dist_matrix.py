@@ -1,19 +1,23 @@
-"""Row-sharded sparse matrix with a halo exchange, on one device.
+"""Row-sharded sparse matrix with a halo exchange.
 
 Counterpart of ``hypredrive_tpu/parallel/dist_matrix.py``.  Rows are
 block-partitioned over the mesh's shards (the reference's ParCSR
 decomposition); each shard holds a local device matrix whose columns
 address its extended local vector ``[x_local | halos]``, filled by the
-static schedule of :mod:`.halo`.  The JAX package's ``shard_map`` body is
-written here with a leading shard axis:
+static schedule of :mod:`.halo`.  Each rank keeps only its own shards, on
+its own device (``mesh.py``).  The JAX package's ``shard_map`` body is
+written here with a leading axis over the rank's k shards:
 
-1. ``xs = x.reshape(n_shards, m)``;
-2. for each halo distance d, ``buf = gather(xs, 1, send_idx[d])`` and
-   ``recv = roll(buf, d, 0)``: shard i's buffer lands on shard
-   (i + d) mod n, as ``ppermute`` sends it;
+1. ``xs = x.reshape(k, m)`` (x is the rank's block of the global vector);
+2. for each halo distance d, ``buf = gather(xs, 1, send_idx[d])``: shard
+   i's buffer goes to shard (i + d) mod n, as ``ppermute`` sends it.  On
+   one rank that is ``roll(buf, d, 0)``; across ranks the rows whose
+   target lies on another rank go by one ``all_to_all_single`` and each
+   shard picks its row from ``[buf | received]``
+   (:func:`.halo.rank_exchange`);
 3. ``x_ext = cat([xs, recv…], 1)``;
-4. ``y_s = E_s.matvec(x_ext[s])`` for every shard: the DIA kernel, then
-   the CSR kernel (``ops/device_matrix.py``), two launches per shard.
+4. ``y_s = E_s.matvec(x_ext[s])`` for every local shard: the DIA kernel,
+   then the CSR kernel (``ops/device_matrix.py``), two launches a shard.
 
 Shard structure: each shard keeps the diagonals its own census picks
 (``ops/device_matrix.py::_select_diagonals``); their union is
@@ -28,14 +32,15 @@ dense, even below ``DENSE_MAX_ELEMENTS``: every shard of every level runs
 on the hand-written kernels, as the JAX package's shards run its sparse
 path.
 
-Global-view semantics: vectors are plain tensors on ``mesh.device`` padded
-to ``shape`` (identity pad rows for square operators), so the same Krylov
-code runs on one device and on the mesh.
+Vectors are plain tensors: the rank's rows of the global vector padded to
+``shape`` (identity pad rows for square operators), so the same Krylov
+code runs on one device and on the mesh.  Every rank runs the same host
+setup and builds the same halo plan; no message is sent before a matvec.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -44,7 +49,7 @@ import torch
 
 from ..ops.csr import row_partition
 from ..ops.device_matrix import EllMatrix, _select_diagonals
-from .halo import build_halo_plan
+from .halo import RankExchange, build_halo_plan, rank_exchange
 from .mesh import Mesh
 
 
@@ -56,9 +61,14 @@ def _round_up(x: int, m: int) -> int:
 class DistEllMatrix:
     """Row-sharded sparse matrix (square or rectangular).
 
-    shards:    one ``EllMatrix`` (rows_max × ext_size) per shard
-    send_idx:  per halo distance, (n_shards, S_d) int64 local indices of
-               the values each shard sends (padded with index 0)
+    shards:    one ``EllMatrix`` (rows_max × ext_size) per shard of this
+               rank
+    send_idx:  per halo distance, (k, S_d) int64 local indices of the
+               values each of this rank's k shards sends (padded with 0)
+    send_plan: the same for every shard of the mesh, (n_shards, S_d)
+               host arrays: the static schedule every rank holds
+    exchange:  per halo distance, None on one rank, else its cross-rank
+               part (:class:`.halo.RankExchange`, rows on the device)
     """
 
     shards: Tuple[EllMatrix, ...]
@@ -71,6 +81,12 @@ class DistEllMatrix:
     nnz: int
     local_max: int                   # padded col-shard size (x_ext locals)
     ext_size: int
+    send_plan: Tuple[np.ndarray, ...]
+    exchange: Tuple[Optional[RankExchange], ...]
+
+    # bytes this process has sent to other ranks in halo exchanges run
+    # eagerly (a captured body counts once, when it is captured)
+    halo_bytes = 0
 
     @property
     def dtype(self) -> torch.dtype:
@@ -186,78 +202,104 @@ class DistEllMatrix:
                 shape=(rows_max, plan.ext_size))
             loc.sort_indices()
             locals_remapped.append(loc)
-        send_idx = tuple(
-            torch.as_tensor(idx.astype(np.int64), device=mesh.device)
-            for idx in plan.send_idx)
-        return cls.from_local(locals_remapped, send_idx, plan.offsets, mesh,
-                              pad_shape, orig_shape, nnz, plan.local_max,
-                              dtype)
+        return cls.from_local(locals_remapped, plan.send_idx, plan.offsets,
+                              mesh, pad_shape, orig_shape, nnz,
+                              plan.local_max, dtype)
 
     @classmethod
-    def from_local(cls, locals_ext: Sequence[sp.csr_matrix],
-                   send_idx: Tuple[torch.Tensor, ...],
+    def from_local(cls, locals_ext: Sequence[sp.csr_matrix], send_idx,
                    offsets: Tuple[int, ...], mesh: Mesh, shape, orig_shape,
                    nnz: int, local_max: int, dtype: torch.dtype
                    ) -> "DistEllMatrix":
-        """From the shards' local blocks in x_ext columns (canonical CSR,
-        rows_max × ext_size) and the halo schedule; each shard keeps the
-        diagonals of its own census, their union is ``dia_offsets``."""
+        """From every shard's local block in x_ext columns (canonical CSR,
+        rows_max × ext_size) and the halo schedule (per distance an
+        (n_shards, S_d) index array); each shard keeps the diagonals of
+        its own census, their union is ``dia_offsets``.  Only this rank's
+        shards go to its device."""
         splits = [_select_diagonals(loc, None) for loc in locals_ext]
-        shards = tuple(EllMatrix.from_split(loc.shape, int(loc.nnz), split,
-                                            dtype, mesh.device)
-                       for loc, split in zip(locals_ext, splits))
+        mine = mesh.shard_range
+        shards = tuple(EllMatrix.from_split(
+            locals_ext[s].shape, int(locals_ext[s].nnz), splits[s], dtype,
+            mesh.device) for s in mine)
         union = tuple(sorted(set().union(*(set(sp_[0]) for sp_ in splits))))
-        return cls(shards=shards, send_idx=tuple(send_idx), mesh=mesh,
+        plan = tuple(np.asarray(i, dtype=np.int64) for i in send_idx)
+        local_idx = tuple(torch.as_tensor(p[mine.start:mine.stop],
+                                          device=mesh.device) for p in plan)
+        exchange = tuple(_exchange_of(mesh, d) for d in offsets)
+        return cls(shards=shards, send_idx=local_idx, mesh=mesh,
                    dia_offsets=union, offsets=tuple(offsets),
                    shape=tuple(shape), orig_shape=tuple(orig_shape),
                    nnz=int(nnz), local_max=int(local_max),
-                   ext_size=int(locals_ext[0].shape[1]))
+                   ext_size=int(locals_ext[0].shape[1]), send_plan=plan,
+                   exchange=exchange)
 
     # ------------------------------------------------------------------
     # device
     # ------------------------------------------------------------------
 
     def extend(self, x: torch.Tensor) -> torch.Tensor:
-        """The halo exchange: (n_shards, ext_size) x_ext from a global x."""
-        n_sh = self.n_shards
+        """The halo exchange: (k, ext_size) x_ext of this rank's k shards
+        from its block x of the global vector."""
         # the column partition is even (n_shards divides shape[1]), so
         # every shard's locals fill local_max exactly
-        xs = x.reshape(n_sh, self.local_max)
+        xs = x.reshape(len(self.shards), self.local_max)
         parts = [xs]
-        for d, idx in zip(self.offsets, self.send_idx):
-            # ppermute i → (i + d) mod n
-            parts.append(torch.roll(torch.gather(xs, 1, idx), d, 0))
+        for d, idx, ex in zip(self.offsets, self.send_idx, self.exchange):
+            buf = torch.gather(xs, 1, idx)
+            if ex is None:
+                # ppermute i → (i + d) mod n
+                parts.append(torch.roll(buf, d, 0))
+            else:
+                parts.append(self._cross(buf, ex))
         return torch.cat(parts, 1) if len(parts) > 1 else xs
 
+    def _cross(self, buf: torch.Tensor, ex: RankExchange) -> torch.Tensor:
+        """One distance's shift across ranks: the rows bound for other
+        ranks go by one ``all_to_all_single``; each shard then takes its
+        row of ``[buf | received]``."""
+        import torch.distributed as dist
+
+        send = buf.index_select(0, ex.send_rows)
+        recv = buf.new_empty((sum(ex.recv_split), buf.shape[1]))
+        dist.all_to_all_single(recv, send, list(ex.recv_split),
+                               list(ex.send_split), group=self.mesh.group)
+        if buf.device.type != "cuda" \
+                or not torch.cuda.is_current_stream_capturing():
+            DistEllMatrix.halo_bytes += send.numel() * send.element_size()
+        return torch.cat([buf, recv]).index_select(0, ex.recv_src)
+
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
-        """y = A @ x for a global x of length shape[1]."""
+        """y = A @ x for this rank's block x of a global x of length
+        shape[1]; y is this rank's block of the result."""
         x_ext = self.extend(x)
         return torch.cat([E.matvec(x_ext[s])
                           for s, E in enumerate(self.shards)])
 
     def diagonal(self) -> torch.Tensor:
-        """diag(A) of a square matrix (shard s's row r has its diagonal
-        entry at x_ext position r)."""
+        """This rank's block of diag(A) of a square matrix (shard s's row r
+        has its diagonal entry at x_ext position r)."""
         return torch.cat([E.diagonal() for E in self.shards])
 
     def row_l1_norms(self) -> torch.Tensor:
         return torch.cat([E.row_l1_norms() for E in self.shards])
 
     def ext_columns(self) -> List[np.ndarray]:
-        """Per shard, the global column of every x_ext position (pad
-        slots of a send buffer map to the sender's first column)."""
+        """Per shard of this rank, the global column of every x_ext
+        position (pad slots of a send buffer map to the sender's first
+        column)."""
         n_sh, m = self.n_shards, self.local_max
         out = []
-        for s in range(n_sh):
+        for s in self.mesh.shard_range:
             cols = [np.arange(s * m, (s + 1) * m)]
-            for d, idx in zip(self.offsets, self.send_idx):
+            for d, idx in zip(self.offsets, self.send_plan):
                 src = (s - d) % n_sh
-                cols.append(src * m + idx[src].cpu().numpy())
+                cols.append(src * m + idx[src])
             out.append(np.concatenate(cols))
         return out
 
     def to_csr(self) -> sp.csr_matrix:
-        """Host round trip of the padded global matrix (parity tests)."""
+        """Host copy of this rank's rows of the padded global matrix, in
+        global columns (the whole matrix on one rank; parity tests)."""
         blocks = []
         for E, cols in zip(self.shards, self.ext_columns()):
             loc = E.to_csr().tocoo()
@@ -269,19 +311,32 @@ class DistEllMatrix:
         return A
 
 
+def _exchange_of(mesh: Mesh, d: int) -> Optional[RankExchange]:
+    """The cross-rank part of the shift by d on this rank, its rows on the
+    device (None on one rank, where the shift is a roll)."""
+    if mesh.world == 1:
+        return None
+    ex = rank_exchange(mesh.n_shards, mesh.world, mesh.rank, d)
+    return replace(ex, send_rows=torch.as_tensor(ex.send_rows,
+                                                 device=mesh.device),
+                   recv_src=torch.as_tensor(ex.recv_src, device=mesh.device))
+
+
 def pad_vector(v, n_pad: int, mesh: Mesh,
                dtype: torch.dtype = torch.float64) -> torch.Tensor:
-    """Host vector → zero-padded global vector on the mesh's device."""
+    """Host vector → this rank's block of the zero-padded global vector,
+    on the mesh's device."""
     out = np.zeros(n_pad, dtype=np.float64)
     out[:len(v)] = np.asarray(v)
-    return torch.as_tensor(out, dtype=dtype, device=mesh.device)
+    return torch.as_tensor(mesh.local(out), dtype=dtype, device=mesh.device)
 
 
 def mesh_ops(mesh: Optional[Mesh], dtype: torch.dtype, device):
     """(op, vec) uploads of host operators and per-row vectors: without a
     mesh an ``EllMatrix`` and a tensor on ``device``; with one a
-    ``DistEllMatrix`` and a vector padded with 1.0 to a multiple of the
-    shard count (the per-row scalings of identity pad rows)."""
+    ``DistEllMatrix`` and this rank's block of a vector padded with 1.0 to
+    a multiple of the shard count (the per-row scalings of identity pad
+    rows)."""
     if mesh is None:
         def op(M):
             return EllMatrix.from_csr(sp.csr_matrix(M), dtype=dtype,
@@ -297,5 +352,6 @@ def mesh_ops(mesh: Optional[Mesh], dtype: torch.dtype, device):
     def vec(v):
         padded = np.ones(_round_up(len(v), mesh.n_shards))
         padded[:len(v)] = v
-        return torch.as_tensor(padded, dtype=dtype, device=mesh.device)
+        return torch.as_tensor(mesh.local(padded), dtype=dtype,
+                               device=mesh.device)
     return op, vec

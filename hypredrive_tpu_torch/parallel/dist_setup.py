@@ -4,7 +4,8 @@ Counterpart of ``hypredrive_tpu/parallel/dist_setup.py``: the host half
 (numpy/scipy) is copied, so both packages build the same C/F splits and
 the same P, R and A_c bit for bit; :func:`setup_hierarchy_dist` uploads
 each level's A, P and R as a :class:`~.dist_matrix.DistEllMatrix` and the
-smoother vectors as padded tensors on the mesh's device.  Every phase
+smoother vectors as the rank's rows of the padded level, on the mesh's
+device (every rank runs the same host setup).  Every phase
 works on per-shard row blocks (the reference's ParCSR BoomerAMG setup
 decomposition, ref: src/internal/amg.c:864 delegating to
 HYPRE_BoomerAMGSetup) and the global matrix is never assembled:
@@ -546,8 +547,7 @@ def setup_hierarchy_dist(A_parts: Sequence[sp.csr_matrix], amg_args,
     and AIR restriction with the F/C relax schedule."""
     import torch
 
-    from ..precon.amg.hierarchy import (AMGLevel, AMGState,
-                                        _pad_smoother_arrays)
+    from ..precon.amg.hierarchy import AMGLevel, AMGState
     from ..precon.chebyshev import cheby_coefficients
     from .dist_matrix import DistEllMatrix
 
@@ -601,7 +601,9 @@ def setup_hierarchy_dist(A_parts: Sequence[sp.csr_matrix], amg_args,
         func_l[:n0] = np.asarray(dof_func)
 
     def vec(a):
-        return torch.as_tensor(a, dtype=dtype, device=mesh.device)
+        # this rank's rows of a per-row vector of the padded level
+        return torch.as_tensor(mesh.local(np.asarray(a)), dtype=dtype,
+                               device=mesh.device)
 
     def smoother_arrays(A_parts, off, n_pad, fmask=None):
         if kind == "chebyshev":
@@ -752,8 +754,7 @@ def setup_hierarchy_dist(A_parts: Sequence[sp.csr_matrix], amg_args,
 
         fmask = (cf_global < 0).astype(np.float64) \
             if kind.startswith("air-") else None
-        sm = _pad_smoother_arrays(
-            smoother_arrays(A_parts, off, n_pad, fmask), n_pad, mesh)
+        sm = smoother_arrays(A_parts, off, n_pad, fmask)
         levels.append(AMGLevel(
             A=DistEllMatrix.from_parts(A_parts, mesh, n_pad, dtype=dtype),
             P=DistEllMatrix.from_parts(P_padded, mesh, npad_c, dtype=dtype),
@@ -771,10 +772,10 @@ def setup_hierarchy_dist(A_parts: Sequence[sp.csr_matrix], amg_args,
             break
 
     # coarsest level: tiny — gather to a dense inverse, exactly like the
-    # host path (ref coarse_type 9 = Gaussian elimination)
+    # host path (ref coarse_type 9 = Gaussian elimination), replicated on
+    # every rank (the cycle gathers the coarse residual to apply it)
     n_pad = int(off[-1])
-    sm_c = _pad_smoother_arrays(
-        smoother_arrays(A_parts, off, n_pad), n_pad, mesh)
+    sm_c = smoother_arrays(A_parts, off, n_pad)
     levels.append(AMGLevel(
         A=DistEllMatrix.from_parts(A_parts, mesh, n_pad, dtype=dtype),
         P=None, R=None, smooth_arrays=sm_c,
@@ -788,7 +789,7 @@ def setup_hierarchy_dist(A_parts: Sequence[sp.csr_matrix], amg_args,
 
     return AMGState(
         levels=tuple(levels),
-        coarse_inv=vec(inv),
+        coarse_inv=torch.as_tensor(inv, dtype=dtype, device=mesh.device),
         cycle_type=0 if int(getattr(amg_args, "cycle_type", 1)) <= 1 else 1,
         max_iter=max(1, int(amg_args.max_iter)),
         mesh=mesh,

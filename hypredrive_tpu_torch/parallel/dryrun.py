@@ -8,7 +8,10 @@
 3. BiCGSTAB + block-Jacobi ILU(0) on the same system, to 1e-8;
 
 each with b = ones and x0 = 0.  On 8 shards the JAX package takes 6, 5
-and 12 iterations (``MULTICHIP_r05.json``).
+and 12 iterations (``MULTICHIP_r05.json``).  The shards may be spread over
+any number of ranks that divides their count; every rank runs the same
+host setup and returns the same records (x gathered once, on every
+rank).
 """
 
 from __future__ import annotations
@@ -62,7 +65,7 @@ def dryrun_multichip(mesh: Mesh, dtype: torch.dtype = torch.float64
     def record(name, A, D, result):
         x, iters, _, done, hist = result[:5]
         n = A.shape[0]
-        xh = x[:n].cpu().numpy()
+        xh = mesh.gather(x)[:n].cpu().numpy()
         out.append({"stack": name, "rows": n, "iters": int(iters),
                     "converged": bool(done),
                     "rel": float(np.linalg.norm(np.ones(n) - A @ xh)
@@ -75,7 +78,7 @@ def dryrun_multichip(mesh: Mesh, dtype: torch.dtype = torch.float64
     b = pad_vector(np.ones(A.shape[0]), D.shape[0], mesh, dtype)
     record("pcg_amg", A, D, pcg_core(
         D.matvec, lambda r: amg_apply(st, r), b, torch.zeros_like(b), 1e-8,
-        0.0, 50, True, 0))
+        0.0, 50, True, 0, group=mesh.reduce_group))
 
     A2, dofmap = two_field_system(A)
     parts2 = split_rows(A2, n_sh)
@@ -88,10 +91,10 @@ def dryrun_multichip(mesh: Mesh, dtype: torch.dtype = torch.float64
     sm = setup_mgr_dist(parts2, args, dofmap, mesh, dtype=dtype)
     record("gmres_mgr", A2, D2, gmres_core(
         D2.matvec, lambda r: mgr_apply(sm, r), b2, torch.zeros_like(b2),
-        1e-6, 0.0, 100, 30, False))
+        1e-6, 0.0, 100, 30, False, group=mesh.reduce_group))
 
     si = build_bj_ilu_dist(parts2, mesh, dtype=dtype)
     record("bicgstab_bj_ilu", A2, D2, bicgstab_core(
         D2.matvec, lambda r: tri_jacobi_apply(si, r), b2,
-        torch.zeros_like(b2), 1e-8, 0.0, 200))
+        torch.zeros_like(b2), 1e-8, 0.0, 200, group=mesh.reduce_group))
     return out

@@ -13,6 +13,11 @@ indices are remapped into an extended local vector layout
 
 so the local SpMV is a plain sparse matvec afterwards.  Buffer sizes are
 static (the largest over the shards for each distance).
+
+When the shards are spread over ranks (``mesh.py``), each shift is split
+for one rank by :func:`rank_exchange`: the buffers whose source shard is
+on the same rank move inside it, the others cross to their rank (the
+boundary rows of hypre's communication package).
 """
 
 from __future__ import annotations
@@ -110,3 +115,52 @@ def remap_column(g: int, shard: int, col_offsets: np.ndarray,
     if lo <= g < hi:
         return int(g - lo)
     return recv_pos[int(g)]
+
+
+@dataclass
+class RankExchange:
+    """One halo distance d seen from one rank of k consecutive shards.
+
+    send_rows:  the rank's send-buffer rows (local shards) whose target
+                shard (i + d) mod n lies on another rank, in target-rank
+                order
+    send_split: rows sent to each rank
+    recv_split: rows received from each rank (in source-rank order, each
+                rank's rows in its send order)
+    recv_src:   per local shard, its receive buffer's row in
+                ``[send buffer rows | received rows]``
+    """
+
+    send_rows: np.ndarray
+    send_split: Tuple[int, ...]
+    recv_split: Tuple[int, ...]
+    recv_src: np.ndarray
+
+
+def rank_exchange(n_shards: int, world: int, rank: int,
+                  d: int) -> RankExchange:
+    """Split the shift by d (shard i sends to (i + d) mod n) for ``rank``
+    of ``world`` ranks, each holding ``n_shards / world`` consecutive
+    shards."""
+    k = n_shards // world
+    lo = rank * k
+    j = np.arange(k)
+    dst_rank = ((lo + j + d) % n_shards) // k
+    cross = dst_rank != rank
+    order = np.lexsort((j[cross], dst_rank[cross]))
+    send_rows = j[cross][order]
+    src = (lo + j - d) % n_shards
+    src_rank = src // k
+    here = src_rank == rank
+    recv_src = np.empty(k, dtype=np.int64)
+    recv_src[here] = src[here] - lo
+    away = np.flatnonzero(~here)
+    away = away[np.lexsort((src[away], src_rank[away]))]
+    recv_src[away] = k + np.arange(len(away))
+    return RankExchange(
+        send_rows=send_rows.astype(np.int64),
+        send_split=tuple(int(c) for c in np.bincount(
+            dst_rank[cross], minlength=world)),
+        recv_split=tuple(int(c) for c in np.bincount(
+            src_rank[~here], minlength=world)),
+        recv_src=recv_src)

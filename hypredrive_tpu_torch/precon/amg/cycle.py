@@ -4,8 +4,11 @@ Counterpart of ``hypredrive_tpu/precon/amg/cycle.py``.  Eager torch: each
 smoother step is a matvec (DIA + CSR kernels, or ``torch.mv`` on the dense
 coarse levels) and a few vector ops; grid transfers are the same matvec,
 and the coarsest solve is a dense matvec with the uploaded inverse.  On a
-row-shard mesh the same code runs on ``DistEllMatrix`` levels and padded
-global vectors (the padded coarsest inverse keeps pad entries zero).
+row-shard mesh the same code runs on ``DistEllMatrix`` levels and the
+rank's blocks of padded global vectors (the padded coarsest inverse keeps
+pad entries zero); the coarsest solve gathers the coarse residual from
+every rank, applies the inverse every rank holds and keeps the rank's
+rows, as XLA does for the JAX package's replicated ``coarse_inv``.
 ``torch.profiler.record_function`` spans ``amg_L{l}_pre/restrict/post``
 group device time per level and phase in a profiler trace.
 """
@@ -120,7 +123,10 @@ def _cycle(state: AMGState, lvl: int, b):
     levels = state.levels
     level = levels[lvl]
     if lvl == len(levels) - 1:
-        return torch.mv(state.coarse_inv, b)
+        mesh = state.mesh
+        if mesh is None or mesh.world == 1:
+            return torch.mv(state.coarse_inv, b)
+        return mesh.local(torch.mv(state.coarse_inv, mesh.gather(b)))
 
     with record_function(f"amg_L{lvl}_pre"):
         x = torch.zeros_like(b)

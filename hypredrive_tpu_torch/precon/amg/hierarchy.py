@@ -205,9 +205,9 @@ def _smoother_arrays(kind: str, A_host: sp.csr_matrix, dtype, device,
 
 def _pad_smoother_arrays(arrs: Tuple, n_pad: int, mesh) -> Tuple:
     """Per-row smoother vectors (on the mesh's device) padded with 1.0
-    (identity pad rows) to the mesh level's ``n_pad`` rows; scalars, short
-    coefficient vectors and matrices (the hybrid-GS triangles, built on
-    the mesh already) pass through."""
+    (identity pad rows) to the mesh level's ``n_pad`` rows, then this
+    rank's rows of them; scalars, short coefficient vectors and matrices
+    (the hybrid-GS triangles, built on the mesh already) pass through."""
     out = []
     for a in arrs:
         if isinstance(a, torch.Tensor) and a.dim() == 1 \
@@ -215,6 +215,9 @@ def _pad_smoother_arrays(arrs: Tuple, n_pad: int, mesh) -> Tuple:
             padded = torch.ones(n_pad, dtype=a.dtype, device=mesh.device)
             padded[:a.shape[0]] = a
             a = padded
+        if isinstance(a, torch.Tensor) and a.dim() == 1 \
+                and a.shape[0] == n_pad and mesh.world > 1:
+            a = mesh.local(a).clone()
         out.append(a)
     return tuple(out)
 

@@ -200,9 +200,10 @@ def _schur_apply(state: SchurILUState, r):
     z0 = b_inv(r.index_select(0, state.int_idx))
     rs = r.index_select(0, state.if_idx) - state.E.matvec(z0)
     m = state.schur_max_iter
-    # one unrolled cycle of m steps (rtol 0), inside the outer graphs
+    # one unrolled cycle of m steps (rtol 0), inside the outer graphs; S
+    # is held whole by its process, so its dots are too
     z_if, *_ = gmres_core(s_mv, c_inv, rs, torch.zeros_like(rs), 0.0, 0.0,
-                          m, m, True, unroll=True)
+                          m, m, True, unroll=True, group=None)
     z_int = z0 - b_inv(state.F.matvec(z_if))
     z = torch.zeros_like(r)
     z.index_copy_(0, state.int_idx, z_int)

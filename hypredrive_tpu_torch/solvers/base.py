@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from ..core.errors import ErrorCode, HypredrvError
-from ..ops.vectors import norm2
+from ..ops.vectors import group_of, reductions
 
 
 @dataclass
@@ -79,6 +79,7 @@ class Solver:
         """Run the solve with untimed true-residual bookkeeping
         (ref: hypredrv_SolverApply, solver.c:627-699)."""
         A, b, x0 = system.A, system.b, system.x
+        _, norm2 = reductions(group_of(A.matvec))
         initial_res_norm = float(norm2(b - A.matvec(x0)))
         b_norm = float(norm2(b))
 

@@ -14,16 +14,21 @@ import math
 
 import torch
 
-from ..ops.vectors import dot, norm2
+from ..ops.vectors import FROM_OPERATOR, group_of, reductions
 from . import device_loop as dl
 from .base import Solver
 from .gmres import device_threshold
 
 
 def bicgstab_core(matvec, precon, b, x0, rtol: float, atol: float,
-                  max_iter: int, *, unroll: bool = False):
-    """(x, iters, final norm, converged, history of max_iter+1 norms)."""
+                  max_iter: int, *, unroll: bool = False,
+                  group=FROM_OPERATOR):
+    """(x, iters, final norm, converged, history of max_iter+1 norms);
+    the dots are summed over ``group`` (``ops.vectors.group_of``)."""
     n = b.shape[0]
+    # on a mesh across ranks every reduction is summed over its group
+    group = group_of(matvec, group)
+    dot, norm2 = reductions(group)
 
     def make():
         L = dl.Loop(b)
@@ -99,9 +104,10 @@ def bicgstab_core(matvec, precon, b, x0, rtol: float, atol: float,
             if R.stopped():
                 break
 
-    key = ("bicgstab", float(rtol), float(atol), int(max_iter), b.dtype, n)
+    key = ("bicgstab", float(rtol), float(atol), int(max_iter), b.dtype, n,
+           group)
     L, mode = dl.run(key, (matvec, precon), make, {"b": b, "x0": x0},
-                     schedule, unroll)
+                     schedule, unroll, group)
     x, (hist,), (i, norm, done) = dl.read_out(L.x, [L.hist],
                                               [L.i, L.norm, L.done], mode)
     if mode == "unroll":

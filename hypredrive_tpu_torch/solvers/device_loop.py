@@ -124,14 +124,25 @@ def eager():
         _local.eager = prev
 
 
-def mode_for(device: torch.device, unroll: bool = False) -> str:
-    """``graph``, ``eager`` or ``unroll`` for a solve on ``device``."""
+def mode_for(device: torch.device, unroll: bool = False,
+             group=None) -> str:
+    """``graph``, ``eager`` or ``unroll`` for a solve on ``device`` whose
+    reductions and halos go over ``group`` (None: one rank).  Only NCCL's
+    collectives can be captured, so a solve over another backend's group
+    (gloo carrying CUDA tensors) runs eagerly."""
     if unroll or (device.type == "cuda"
                   and torch.cuda.is_current_stream_capturing()):
         return "unroll"
-    if device.type == "cuda" and not getattr(_local, "eager", False):
+    if device.type == "cuda" and not getattr(_local, "eager", False) \
+            and (group is None or _is_nccl(group)):
         return "graph"
     return "eager"
+
+
+def _is_nccl(group) -> bool:
+    import torch.distributed as dist
+
+    return str(dist.get_backend(group)).lower() == "nccl"
 
 
 # ---------------------------------------------------------------------------
@@ -374,11 +385,12 @@ def _stream() -> torch.cuda.Stream:
     return _capture_stream
 
 
-def _capture(loop: Loop) -> _Entry:
+def _capture(loop: Loop, group=None) -> _Entry:
     """Warm the bodies up on the capture stream (first use of cuBLAS
-    handles, kernel attributes and allocator pools on that stream), then
-    capture each into a graph of one shared pool; the counters end as
-    they began."""
+    handles, kernel attributes and allocator pools on that stream; with a
+    ``group``, a collective first, so that its communicator exists before
+    any capture), then capture each into a graph of one shared pool; the
+    counters end as they began."""
     from ..ops.krylov_small import graph_nodes
 
     entry = _Entry(loop)
@@ -388,6 +400,10 @@ def _capture(loop: Loop) -> _Entry:
     side.wait_stream(torch.cuda.current_stream())
     pool = None
     with torch.cuda.stream(side):
+        if group is not None:
+            import torch.distributed as dist
+
+            dist.all_reduce(torch.zeros(1, device=loop.device), group=group)
         for name in loop.warm:
             loop.bodies[name]()
         for name, fn in loop.bodies.items():
@@ -416,14 +432,18 @@ def _capture(loop: Loop) -> _Entry:
 
 
 def run(key: tuple, fns, make: Callable[[], Loop], inputs: Dict[str, object],
-        schedule: Callable[[Runner, Loop], None], unroll: bool = False
-        ) -> tuple:
+        schedule: Callable[[Runner, Loop], None], unroll: bool = False,
+        group=None) -> tuple:
     """Run one solve: ``make()`` builds the loop, ``inputs`` are copied
     into its buffers of the same names, ``schedule`` drives it.  Returns
     (loop, mode); in ``graph`` mode the loop's buffers belong to the
-    cache, so the caller copies out what it keeps."""
+    cache, so the caller copies out what it keeps.  ``group`` is the
+    process group of the solve's collectives (None on one rank): they are
+    captured with the bodies, after the eager warm-up on the capture
+    stream has made the group's communicator, and every rank replays the
+    same bodies, since every flag derives from reduced values."""
     dev = next(iter(inputs.values())).device
-    mode = mode_for(dev, unroll)
+    mode = mode_for(dev, unroll, group)
     entry = full = owners = None
     if mode == "graph":
         _drop_dead()
@@ -436,7 +456,14 @@ def run(key: tuple, fns, make: Callable[[], Loop], inputs: Dict[str, object],
     for name, v in inputs.items():
         getattr(loop, name).copy_(v)
     if mode == "graph" and entry is None:
-        entry = _capture(loop)
+        if group is not None:
+            from ..core import runtime
+
+            # a captured NCCL collective holds its communicator until the
+            # graph is destroyed, and destroying the communicator waits
+            # for those: finalize drops the graphs before the group
+            runtime.at_finalize(clear)
+        entry = _capture(loop, group)
         entry.owner_ids = {id(o) for o in owners}
         for o in owners:
             with contextlib.suppress(TypeError):

@@ -11,15 +11,17 @@ loop of ``gmres.py`` on the device loop, with the flexible variant.
 
 from __future__ import annotations
 
+from ..ops.vectors import FROM_OPERATOR
 from .base import Solver
 from .gmres import arnoldi_core
 
 
 def fgmres_core(matvec, precon, b, x0, rtol: float, atol: float,
-                max_iter: int, m: int, *, unroll: bool = False):
+                max_iter: int, m: int, *, unroll: bool = False,
+                group=FROM_OPERATOR):
     """(x, iters, final norm, converged, history of max_iter+1 norms)."""
     return arnoldi_core(matvec, precon, b, x0, rtol, atol, max_iter, m,
-                        flexible=True, unroll=unroll)[:5]
+                        flexible=True, unroll=unroll, group=group)[:5]
 
 
 class FGMRESSolver(Solver):

@@ -35,7 +35,7 @@ import numpy as np
 import torch
 
 from ..ops.krylov_small import givens_update, hessenberg_backsolve
-from ..ops.vectors import dot, norm2
+from ..ops.vectors import FROM_OPERATOR, group_of, reductions
 from . import device_loop as dl
 from .base import Solver
 
@@ -59,14 +59,19 @@ def block_errors(x, xref, tags, num_tags: int):
 def arnoldi_core(matvec, precon, b, x0, rtol: float, atol: float,
                  max_iter: int, m: int, *, flexible: bool,
                  skip_real_res_check: bool = False, xref=None, tags=None,
-                 num_tags: int = 0, unroll: bool = False):
+                 num_tags: int = 0, unroll: bool = False,
+                 group=FROM_OPERATOR):
     """Restarted GMRES (``flexible`` False: left-preconditioned, inner
     test against the factor-scaled β) or FGMRES (True: right-
     preconditioned with the Z basis, inner test against the threshold).
     Returns (x, iters, final norm, converged, history, error history or
     None); in ``unroll`` mode the whole budget runs with no host read and
-    the count, norm, flag and histories stay device tensors."""
+    the count, norm, flag and histories stay device tensors.  The dots are
+    summed over ``group`` (``ops.vectors.group_of``)."""
     n = b.shape[0]
+    # on a mesh across ranks every reduction is summed over its group
+    group = group_of(matvec, group)
+    dot, norm2 = reductions(group)
     tagged = num_tags > 0
 
     def make():
@@ -210,11 +215,12 @@ def arnoldi_core(matvec, precon, b, x0, rtol: float, atol: float,
 
     key = ("fgmres" if flexible else "gmres", float(rtol), float(atol),
            int(max_iter), int(m), bool(skip_real_res_check), num_tags,
-           b.dtype, n)
+           b.dtype, n, group)
     inputs = {"b": b, "x0": x0}
     if tagged:
         inputs.update(xref=xref, tags=tags)
-    L, mode = dl.run(key, (matvec, precon), make, inputs, schedule, unroll)
+    L, mode = dl.run(key, (matvec, precon), make, inputs, schedule, unroll,
+                     group)
     arrays = [L.hist] + ([L.ehist] if tagged else [])
     x, hists, (total, norm, done) = dl.read_out(
         L.x, arrays, [L.total, L.r_true, L.outer_done], mode)
@@ -227,7 +233,8 @@ def arnoldi_core(matvec, precon, b, x0, rtol: float, atol: float,
 def gmres_core(matvec, precon, b, x0, rtol: float, atol: float,
                max_iter: int = 300, m: int = 30,
                skip_real_res_check: bool = False, xref=None, tags=None,
-               num_tags: int = 0, *, unroll: bool = False):
+               num_tags: int = 0, *, unroll: bool = False,
+               group=FROM_OPERATOR):
     """(x, iters, final norm, converged, history of max_iter+1 norms, NaN
     past the last iteration, per-block error history): the last is the
     (max_iter+1, num_tags) error history against ``xref`` (int64 ``tags``
@@ -235,7 +242,8 @@ def gmres_core(matvec, precon, b, x0, rtol: float, atol: float,
     return arnoldi_core(matvec, precon, b, x0, rtol, atol, max_iter, m,
                         flexible=False,
                         skip_real_res_check=skip_real_res_check, xref=xref,
-                        tags=tags, num_tags=num_tags, unroll=unroll)
+                        tags=tags, num_tags=num_tags, unroll=unroll,
+                        group=group)
 
 
 class GMRESSolver(Solver):

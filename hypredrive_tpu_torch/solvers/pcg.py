@@ -20,19 +20,24 @@ import math
 
 import torch
 
-from ..ops.vectors import dot, norm2
+from ..ops.vectors import FROM_OPERATOR, group_of, reductions
 from . import device_loop as dl
 from .base import Solver
 
 
 def pcg_core(matvec, precon, b, x0, rtol: float, atol: float,
              max_iter: int, two_norm: bool, recompute_res: int, *,
-             unroll: bool = False):
+             unroll: bool = False, group=FROM_OPERATOR):
     """(x, iters, final norm, converged, history of max_iter+1 norms,
     NaN past the last iteration).  ``unroll`` runs the whole budget with
     no host read (a solve nested in a captured body); then the count,
-    norm, flag and history stay device tensors."""
+    norm, flag and history stay device tensors.  ``group`` is the process
+    group the dots are summed over (``ops.vectors.group_of``: by default
+    the mesh's of a bound ``matvec``)."""
     n = b.shape[0]
+    # on a mesh across ranks every reduction is summed over its group
+    group = group_of(matvec, group)
+    dot, norm2 = reductions(group)
 
     def norm_of(r, gamma):
         return norm2(r) if two_norm else torch.sqrt(torch.abs(gamma))
@@ -108,9 +113,9 @@ def pcg_core(matvec, precon, b, x0, rtol: float, atol: float,
                 break
 
     key = ("pcg", float(rtol), float(atol), int(max_iter), bool(two_norm),
-           int(recompute_res), b.dtype, n)
+           int(recompute_res), b.dtype, n, group)
     L, mode = dl.run(key, (matvec, precon), make, {"b": b, "x0": x0},
-                     schedule, unroll)
+                     schedule, unroll, group)
     x, (hist,), (i, norm, done) = dl.read_out(L.x, [L.hist],
                                               [L.i, L.norm, L.done], mode)
     if mode == "unroll":

@@ -525,3 +525,60 @@ def test_givens_in_device_memory_matches_plain(dev, dtype, m):
     a["on"].fill_(False)
     givens_update(*args(a))
     assert all(torch.equal(a[k], snap[k]) for k in snap if k != "on")
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_kernels_launch_on_their_tensors_card(dtype):
+    """With cuda:0 current, the DIA, CSR, Givens and back-substitution
+    kernels on cuda:1 tensors launch there (the wrappers make the
+    operands' card current around each launch; the CSR grid is sized for
+    that card) and agree with their plain versions; the current card
+    stays cuda:0.  Needs two cards."""
+    from hypredrive_tpu_torch.ops.krylov_small import (
+        givens_update, givens_update_plain, hessenberg_backsolve,
+        hessenberg_backsolve_plain)
+
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two NVIDIA GPUs")
+    torch.cuda.set_device(0)
+    d1 = torch.device("cuda", 1)
+    A = sp.random(4000, 4000, density=0.002, random_state=3, format="csr")
+    A = sp.csr_matrix(A + laplacian_3d_7pt(16)[:4000, :4000])
+    E = EllMatrix.from_csr(A, dtype=dtype, device=d1)
+    assert E.dia_data is not None and E.data is not None
+    x = torch.tensor(np.random.default_rng(4).standard_normal(4000),
+                     dtype=dtype)
+    y = E.matvec(x.to(d1))
+    assert y.device == d1
+    ref = EllMatrix.from_csr(A, dtype=dtype, device="cpu").matvec(x)
+    assert _close(y.cpu(), ref, dtype)
+    m = 30
+    rng = np.random.default_rng(5)
+    state = {d: dict(H=torch.zeros((m + 1, m), dtype=dtype, device=d),
+                     cs=torch.zeros(m, dtype=dtype, device=d),
+                     sn=torch.zeros(m, dtype=dtype, device=d),
+                     g=torch.full((m + 1,), 2.5, dtype=dtype, device=d),
+                     norm=torch.zeros((), dtype=dtype, device=d),
+                     thr=torch.tensor(1e-6, dtype=dtype, device=d),
+                     done=torch.zeros((), dtype=torch.bool, device=d),
+                     hist=torch.zeros(m + 1, dtype=dtype, device=d),
+                     base=torch.zeros((), dtype=torch.int64, device=d),
+                     y=torch.zeros(m, dtype=dtype, device=d),
+                     count=torch.full((), m, dtype=torch.int64, device=d),
+                     on=torch.ones((), dtype=torch.bool, device=d))
+             for d in (d1, "cpu")}
+    for j in range(m):
+        col = rng.standard_normal(j + 2)
+        for d, upd in ((d1, givens_update), ("cpu", givens_update_plain)):
+            s = state[d]
+            upd(s["H"], s["cs"], s["sn"], s["g"],
+                torch.tensor(col, dtype=dtype, device=d), j, s["on"],
+                s["norm"], s["thr"], s["done"], s["hist"], s["base"])
+    for d, bsolve in ((d1, hessenberg_backsolve),
+                      ("cpu", hessenberg_backsolve_plain)):
+        s = state[d]
+        bsolve(s["H"], s["g"], s["y"], s["count"], s["on"])
+    torch.cuda.synchronize(d1)
+    for key in ("H", "cs", "sn", "g", "y"):
+        assert torch.equal(state[d1][key].cpu(), state["cpu"][key]), key
+    assert torch.cuda.current_device() == 0
