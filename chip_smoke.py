@@ -404,7 +404,7 @@ def device_kernels(prof):
     out = {}
     for e in prof.profiler.kineto_results.events():
         if (e.device_type() != DeviceType.CUDA or e.is_user_annotation()
-                or e.name().startswith(("hypredrv::", "amg_L", "mgr_L"))):
+                or e.name().startswith("hypredrv::")):
             continue
         acc = out.setdefault(e.name(), [0.0, 0])
         acc[0] += e.duration_ns() / 1e3
@@ -2425,16 +2425,15 @@ def rank_solves(key, A, b_host, mesh, solve, ref, bound):
     to the JAX package's mesh count and history; then, uncounted, the
     same solve as the eager body (its count, and the halo bytes this rank
     sends) and under the profiler (the warm solve's device time)."""
-    from hypredrive_tpu_torch.parallel import DistEllMatrix
     from hypredrive_tpu_torch.solvers import device_loop as dl
 
     out, first_s = timed(solve)
     out, warm_s = timed(solve)
     r = check_mesh_solve(key, A, b_host, out, ref, bound, mesh)
     with uncounted(), dl.eager():
-        DistEllMatrix.halo_bytes = 0
+        sent = dl.stats["halo_bytes"]
         eager = solve()
-        halo = DistEllMatrix.halo_bytes
+        halo = dl.stats["halo_bytes"] - sent
     check(int(eager[1]) == r["iters"],
           f"{key}: the eager body took {int(eager[1])} iterations, the "
           f"graphs {r['iters']}")

@@ -193,9 +193,10 @@ def main(argv: Optional[List[str]] = None) -> int:
     prof = None
     if profile_dir:
         # a trace of the whole run (the Caliper-report analogue, ref:
-        # include/internal/stats.h:47-80): the stats spans and the amg_L* /
-        # mgr_L* record_function spans group host and device time per phase
-        # and level; open it in Perfetto or TensorBoard
+        # include/internal/stats.h:47-80): the hypredrv::* spans of
+        # core/trace.py (the stats phases, the host set-up, the device
+        # loop's launches and flag waits) name the host work around the
+        # device's operations; open it in Perfetto or TensorBoard
         import torch
         from torch.profiler import (ProfilerActivity, profile,
                                     tensorboard_trace_handler)

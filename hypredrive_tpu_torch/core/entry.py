@@ -90,8 +90,7 @@ def profiled_device_s(run) -> float:
     return sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
                if e.device_type() == DeviceType.CUDA
                and not e.is_user_annotation()
-               and not e.name().startswith(("hypredrv::", "amg_L",
-                                            "mgr_L"))) / 1e9
+               and not e.name().startswith("hypredrv::")) / 1e9
 
 
 def card() -> dict:

@@ -16,8 +16,10 @@ rollup tables (ref: src/internal/stats.c:957 StatsAnnotateLevelBegin,
 :1689 StatsLevelPrint); the reuse engine reads the open frames and the
 closed records.
 
-Each phase also opens a ``torch.profiler.record_function`` span named
-``hypredrv::<phase>``, visible in a profiler trace.
+Each phase is also a span of ``core/trace.py`` that counts nothing (the
+phase keeps its own timer here, and a caller's tag never reaches the
+program's counters): under a recording profiler it is the range
+``hypredrv::<tag>``.
 
 The summary table format is byte-compatible with the reference
 (ref: src/internal/stats.c:1222-1365; examples/refOutput/ex1.txt).
@@ -30,7 +32,7 @@ import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
-from torch.profiler import record_function
+from .trace import span
 
 _BUILD_PHASES = ("matrix", "rhs", "dofmap")
 _KNOWN_PHASES = _BUILD_PHASES + ("prec", "solve")
@@ -80,17 +82,15 @@ class Stats:
         self._levels: List[_LevelFrame] = []
         self._level_records: List[dict] = []
         self._ls_counter = -1
-        self._spans: Dict[str, record_function] = {}
+        self._spans: Dict[str, span] = {}
 
     def _span_begin(self, tag: str):
-        span = record_function(f"hypredrv::{tag}")
-        span.__enter__()
-        self._spans[tag] = span
+        self._spans[tag] = span(tag, counted=False).begin()
 
     def _span_end(self, tag: str):
-        span = self._spans.pop(tag, None)
-        if span is not None:
-            span.__exit__(None, None, None)
+        s = self._spans.pop(tag, None)
+        if s is not None:
+            s.end()
 
     def annotate_begin(self, name: str, index: Optional[int] = None):
         now = time.perf_counter()

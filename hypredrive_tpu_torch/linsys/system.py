@@ -27,6 +27,7 @@ import torch
 
 from ..core.errors import ErrorCode, HypredrvError
 from ..core.logging import log
+from ..core.trace import count, span
 from ..io import ij as ij_io
 from ..ops import csr as csr_ops
 from ..ops.device_matrix import EllMatrix
@@ -281,7 +282,9 @@ class LinearSystem:
     def set_rhs_array(self, values: np.ndarray):
         if len(values) != self.num_rows:
             raise HypredrvError("rhs size mismatch", ErrorCode.VECTOR)
-        self.b = self._vec(values)
+        with span("rhs_upload"):
+            self.b = self._vec(values)
+        count("h2d_bytes", self.b.numel() * self.b.element_size())
 
     def set_x0_array(self, values: np.ndarray):
         if len(values) != self.num_rows:
@@ -300,7 +303,10 @@ class LinearSystem:
         self.x = self.x0
 
     def get_solution(self) -> np.ndarray:
-        return self.x.cpu().numpy()
+        with span("solution_download"):
+            x = self.x.cpu().numpy()
+        count("d2h_bytes", self.x.numel() * self.x.element_size())
+        return x
 
     # -- transforms --------------------------------------------------------
 

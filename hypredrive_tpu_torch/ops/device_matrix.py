@@ -27,6 +27,7 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
+from ..core.trace import span
 from .csr_spmv import csr_spmv, csr_tiles
 from .dia_spmv import dia_spmv
 
@@ -116,21 +117,24 @@ class EllMatrix:
                  dia_offsets: Optional[Sequence[int]] = None
                  ) -> "EllMatrix":
         """``dia_offsets`` pins the diagonals (else they are chosen as the
-        JAX package chooses them)."""
-        A = sp.csr_matrix(A)
-        n_rows, n_cols = A.shape
-        device = torch.device(device)
-        if n_rows * n_cols <= DENSE_MAX_ELEMENTS and A.nnz > 0:
-            return cls(shape=(n_rows, n_cols), nnz=int(A.nnz), dtype=dtype,
-                       device=device,
-                       dense=torch.as_tensor(np.asarray(A.todense()),
-                                             dtype=dtype, device=device))
-        if not A.has_canonical_format:
-            A.sum_duplicates()
-        if not A.has_sorted_indices:
-            A.sort_indices()
-        return cls.from_split(A.shape, int(A.nnz),
-                              _select_diagonals(A, dia_offsets), dtype, device)
+        JAX package chooses them).  The span ``operator_build`` times the
+        host conversion and the upload."""
+        with span("operator_build"):
+            A = sp.csr_matrix(A)
+            n_rows, n_cols = A.shape
+            device = torch.device(device)
+            if n_rows * n_cols <= DENSE_MAX_ELEMENTS and A.nnz > 0:
+                return cls(shape=(n_rows, n_cols), nnz=int(A.nnz),
+                           dtype=dtype, device=device,
+                           dense=torch.as_tensor(np.asarray(A.todense()),
+                                                 dtype=dtype, device=device))
+            if not A.has_canonical_format:
+                A.sum_duplicates()
+            if not A.has_sorted_indices:
+                A.sort_indices()
+            return cls.from_split(A.shape, int(A.nnz),
+                                  _select_diagonals(A, dia_offsets), dtype,
+                                  device)
 
     @classmethod
     def from_split(cls, shape: Tuple[int, int], nnz: int, split,

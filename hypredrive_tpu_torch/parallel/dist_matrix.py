@@ -47,6 +47,7 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
+from ..core.trace import count, span
 from ..ops.csr import row_partition
 from ..ops.device_matrix import EllMatrix, _select_diagonals
 from .halo import RankExchange, build_halo_plan, rank_exchange
@@ -84,10 +85,6 @@ class DistEllMatrix:
     send_plan: Tuple[np.ndarray, ...]
     exchange: Tuple[Optional[RankExchange], ...]
 
-    # bytes this process has sent to other ranks in halo exchanges run
-    # eagerly (a captured body counts once, when it is captured)
-    halo_bytes = 0
-
     @property
     def dtype(self) -> torch.dtype:
         return self.shards[0].dtype
@@ -108,36 +105,38 @@ class DistEllMatrix:
         Square matrices are padded with identity rows/cols to a multiple
         of n_shards (padded entries stay exactly zero through solves);
         rectangular operators (P/R) pad rows and columns independently.
+        The span ``operator_build`` times it.
         """
-        A = sp.csr_matrix(A)
-        n_shards = mesh.n_shards
-        n_rows, n_cols = A.shape
-        rows_pad = _round_up(n_rows, n_shards)
-        cols_pad = _round_up(n_cols, n_shards)
-        square = n_rows == n_cols
+        with span("operator_build"):
+            A = sp.csr_matrix(A)
+            n_shards = mesh.n_shards
+            n_rows, n_cols = A.shape
+            rows_pad = _round_up(n_rows, n_shards)
+            cols_pad = _round_up(n_cols, n_shards)
+            square = n_rows == n_cols
 
-        if rows_pad != n_rows or cols_pad != n_cols:
-            A = A.copy()
-            A.resize((rows_pad, cols_pad))
-            if square:
-                extra = np.arange(n_rows, rows_pad)
-                A = (A + sp.coo_matrix(
-                    (np.ones(len(extra)), (extra, extra)),
-                    shape=(rows_pad, cols_pad))).tocsr()
-        A.sort_indices()
+            if rows_pad != n_rows or cols_pad != n_cols:
+                A = A.copy()
+                A.resize((rows_pad, cols_pad))
+                if square:
+                    extra = np.arange(n_rows, rows_pad)
+                    A = (A + sp.coo_matrix(
+                        (np.ones(len(extra)), (extra, extra)),
+                        shape=(rows_pad, cols_pad))).tocsr()
+            A.sort_indices()
 
-        row_off = row_partition(rows_pad, n_shards)
-        col_off = row_partition(cols_pad, n_shards)
+            row_off = row_partition(rows_pad, n_shards)
+            col_off = row_partition(cols_pad, n_shards)
 
-        subs = []
-        for s in range(n_shards):
-            lo, hi = int(row_off[s]), int(row_off[s + 1])
-            sub = sp.csr_matrix(A[lo:hi])
-            sub.sort_indices()
-            subs.append(sub)
-        return cls._from_local_blocks(
-            subs, mesh, col_off, (rows_pad, cols_pad), (n_rows, n_cols),
-            int(A.nnz), dtype)
+            subs = []
+            for s in range(n_shards):
+                lo, hi = int(row_off[s]), int(row_off[s + 1])
+                sub = sp.csr_matrix(A[lo:hi])
+                sub.sort_indices()
+                subs.append(sub)
+            return cls._from_local_blocks(
+                subs, mesh, col_off, (rows_pad, cols_pad), (n_rows, n_cols),
+                int(A.nnz), dtype)
 
     @classmethod
     def from_parts(cls, parts, mesh: Mesh, n_cols: int,
@@ -263,9 +262,10 @@ class DistEllMatrix:
         recv = buf.new_empty((sum(ex.recv_split), buf.shape[1]))
         dist.all_to_all_single(recv, send, list(ex.recv_split),
                                list(ex.send_split), group=self.mesh.group)
-        if buf.device.type != "cuda" \
-                or not torch.cuda.is_current_stream_capturing():
-            DistEllMatrix.halo_bytes += send.numel() * send.element_size()
+        # what this rank sends to others; a captured body adds it on
+        # every replay (device_loop)
+        count("halo_bytes", send.numel() * send.element_size())
+        count("halo_msgs", sum(1 for k in ex.send_split if k))
         return torch.cat([buf, recv]).index_select(0, ex.recv_src)
 
     def matvec(self, x: torch.Tensor) -> torch.Tensor:

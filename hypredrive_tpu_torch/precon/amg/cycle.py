@@ -9,14 +9,11 @@ rank's blocks of padded global vectors (the padded coarsest inverse keeps
 pad entries zero); the coarsest solve gathers the coarse residual from
 every rank, applies the inverse every rank holds and keeps the rank's
 rows, as XLA does for the JAX package's replicated ``coarse_inv``.
-``torch.profiler.record_function`` spans ``amg_L{l}_pre/restrict/post``
-group device time per level and phase in a profiler trace.
 """
 
 from __future__ import annotations
 
 import torch
-from torch.profiler import record_function
 
 from .hierarchy import GS_TRI_ITERS, AMGLevel, AMGState
 
@@ -128,21 +125,17 @@ def _cycle(state: AMGState, lvl: int, b):
             return torch.mv(state.coarse_inv, b)
         return mesh.local(torch.mv(state.coarse_inv, mesh.gather(b)))
 
-    with record_function(f"amg_L{lvl}_pre"):
-        x = torch.zeros_like(b)
-        x = _smooth(level, x, b, level.pre_sweeps, phase="pre",
-                    zero_guess=True)
-        r = b - level.A.matvec(x)
-    with record_function(f"amg_L{lvl}_restrict"):
-        rc = level.R.matvec(r)
+    x = torch.zeros_like(b)
+    x = _smooth(level, x, b, level.pre_sweeps, phase="pre", zero_guess=True)
+    r = b - level.A.matvec(x)
+    rc = level.R.matvec(r)
     ec = _cycle(state, lvl + 1, rc)
     if state.cycle_type == 1 and lvl + 1 < len(levels) - 1:
         # W-cycle: second coarse visit
         rc2 = rc - levels[lvl + 1].A.matvec(ec)
         ec = ec + _cycle(state, lvl + 1, rc2)
-    with record_function(f"amg_L{lvl}_post"):
-        x = x + level.P.matvec(ec)
-        x = _smooth(level, x, b, level.post_sweeps, phase="post")
+    x = x + level.P.matvec(ec)
+    x = _smooth(level, x, b, level.post_sweeps, phase="post")
     return x
 
 

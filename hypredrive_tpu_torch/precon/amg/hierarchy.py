@@ -38,6 +38,7 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
+from ...core.trace import span
 from ...ops.device_matrix import EllMatrix
 from .air import build_restriction
 from .coarsen import coarsen
@@ -434,38 +435,46 @@ def setup_hierarchy(A_host: sp.csr_matrix, amg_args,
     for lvl in range(max_levels - 1):
         if n_real <= max_coarse or (min_coarse and n_real <= min_coarse):
             break
-        n = A_l.shape[0]
-        S = strength_graph(A_l, theta=theta, sabs=sabs, dof_func=func_l)
-        if S.nnz == 0:
-            break
-        cf = coarsen(S, ctype=int(csn.type), seed=lvl + seed_base)
-        nC = int((cf > 0).sum())
-        if nC == 0 or nC >= n:
-            break
-        if lvl < agg_levels and restriction_type == 0 and nC > max_coarse:
-            # aggressive coarsening: a second PMIS pass fused into this
-            # level (ref: amg.c:330-347)
-            P, cf = _aggressive_interpolation(
-                A_l, S, cf, itp, lvl + seed_base, ctype=int(csn.type),
-                theta=theta, sabs=sabs, func_l=func_l,
-                trunc_factor=(agg_trunc if agg_trunc > 0
-                              else float(itp.trunc_factor)),
-                max_nnz_row=(agg_pmax if agg_pmax > 0
-                             else int(itp.max_nnz_row)))
-        else:
-            P = build_interpolation(
-                A_l, S, cf,
-                prolongation_type=int(itp.prolongation_type),
-                trunc_factor=float(itp.trunc_factor),
-                max_nnz_row=int(itp.max_nnz_row))
-        if V_l is not None:
-            from .rbm import augment_interpolation
+        # the level's host construction, strength graph to Galerkin
+        # product: one entry of the span hierarchy_host
+        with span("hierarchy_host") as level:
+            n = A_l.shape[0]
+            S = strength_graph(A_l, theta=theta, sabs=sabs,
+                               dof_func=func_l)
+            if S.nnz == 0:
+                level.n = 0     # no level: its time counts, not a level
+                break
+            cf = coarsen(S, ctype=int(csn.type), seed=lvl + seed_base)
+            nC = int((cf > 0).sum())
+            if nC == 0 or nC >= n:
+                level.n = 0
+                break
+            if (lvl < agg_levels and restriction_type == 0
+                    and nC > max_coarse):
+                # aggressive coarsening: a second PMIS pass fused into this
+                # level (ref: amg.c:330-347)
+                P, cf = _aggressive_interpolation(
+                    A_l, S, cf, itp, lvl + seed_base, ctype=int(csn.type),
+                    theta=theta, sabs=sabs, func_l=func_l,
+                    trunc_factor=(agg_trunc if agg_trunc > 0
+                                  else float(itp.trunc_factor)),
+                    max_nnz_row=(agg_pmax if agg_pmax > 0
+                                 else int(itp.max_nnz_row)))
+            else:
+                P = build_interpolation(
+                    A_l, S, cf,
+                    prolongation_type=int(itp.prolongation_type),
+                    trunc_factor=float(itp.trunc_factor),
+                    max_nnz_row=int(itp.max_nnz_row))
+            if V_l is not None:
+                from .rbm import augment_interpolation
 
-            P, V_c = augment_interpolation(P, cf, V_l, A=A_l, qmax=qmax)
-        R_air = build_restriction(A_l, cf, restriction_type, restrict_th,
-                                  restrict_filter)
-        R = R_air if R_air is not None else sp.csr_matrix(P.T)
-        A_c = _galerkin_rap(A_l, P, R_air)
+                P, V_c = augment_interpolation(P, cf, V_l, A=A_l,
+                                               qmax=qmax)
+            R_air = build_restriction(A_l, cf, restriction_type,
+                                      restrict_th, restrict_filter)
+            R = R_air if R_air is not None else sp.csr_matrix(P.T)
+            A_c = _galerkin_rap(A_l, P, R_air)
         # the F-point mask of this level as padded: the previous level's
         # identity pad rows are isolated points, hence F
         fmask = (cf < 0).astype(np.float64) if masked else None

@@ -21,9 +21,9 @@ from typing import Optional, Tuple
 import numpy as np
 import scipy.sparse as sp
 import torch
-from torch.profiler import record_function
 
 from ..core.errors import ErrorCode, HypredrvError
+from ..core.trace import span
 from ..ops.device_matrix import EllMatrix
 
 
@@ -79,10 +79,10 @@ def build_component(kind_config, A_host: sp.csr_matrix, dtype,
 
     ``kind_config`` may be a string name, an int code, or a nested map
     like ``{amg: {...}}`` / ``{krylov: {...}}`` (ref: mgr.c f_relaxation
-    forms).  A ``hypredrv::component_<name>`` profiler span times it.
+    forms).  The span ``component_<name>`` (``core/trace.py``) times it.
     """
     name, sub = _normalize_kind(kind_config)
-    with record_function(f"hypredrv::component_{name}"):
+    with span(f"component_{name}"):
         return _build(name, sub, A_host, dtype, dofmap, device)
 
 

@@ -29,9 +29,9 @@ from typing import Optional
 import numpy as np
 import scipy.sparse as sp
 import torch
-from torch.profiler import record_function
 
 from ..core.errors import ErrorCode, HypredrvError
+from ..core.trace import span
 from ..ops.device_matrix import EllMatrix
 from .base import Preconditioner, precon_matrix
 
@@ -98,7 +98,7 @@ def ilu0_factor(A: sp.csr_matrix, plain: bool = False):
     A.sort_indices()
     n = A.shape[0]
     indptr, indices = A.indptr, A.indices
-    with record_function("hypredrv::ilu0_factor"):
+    with span("ilu0_factor"):
         data = None
         if not plain:
             try:

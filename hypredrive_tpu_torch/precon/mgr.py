@@ -13,8 +13,9 @@ F-relaxation, global relaxation and coarsest solver are components
 Apply runs on the device: every level's A, P and R is an
 :class:`~hypredrive_tpu_torch.ops.device_matrix.EllMatrix` (the DIA and CSR
 kernels), the F-point gather/scatter is ``index_select``/``index_add`` with
-int64 F indices on the device.  ``record_function`` spans
-``mgr_L{l}_pre/post`` group device time per level in a profile.
+int64 F indices on the device.  Each level's host construction (F/C
+split to coarse product) is one entry of the span ``hierarchy_host``
+(``core/trace.py``).
 
 The ``masked-*`` F-relaxations are built by the mesh setup
 (``parallel/dist_precon.py``) and run on the full space, with no F-point
@@ -29,10 +30,10 @@ from typing import List, Optional, Tuple
 import numpy as np
 import scipy.sparse as sp
 import torch
-from torch.profiler import record_function
 
 from ..core.errors import ErrorCode, HypredrvError
 from ..core.logging import log
+from ..core.trace import span
 from ..ops.device_matrix import EllMatrix
 from .base import Preconditioner, precon_matrix
 from .components import apply_component, build_component
@@ -111,26 +112,24 @@ def _mgr_cycle(state: MGRState, lvl: int, b):
     # (pre, post) relaxation pattern applies to BOTH F-relax and global
     # smoothing (ref: HYPRE_MGRSetFRelaxCycle + SetGlobalSmoothCycle with
     # the same cycle_smooth_pos, mgr.c:3793-3795)
-    with record_function(f"mgr_L{lvl}_pre"):
-        if level.pre:
-            if level.g_kind != "none":
-                x = _g_relax(level, x, b)
-            if level.f_kind != "none":
-                x = _f_relax(level, x, b)
-        r = b - level.A.matvec(x)
-        rc = level.R.matvec(r)
+    if level.pre:
+        if level.g_kind != "none":
+            x = _g_relax(level, x, b)
+        if level.f_kind != "none":
+            x = _f_relax(level, x, b)
+    r = b - level.A.matvec(x)
+    rc = level.R.matvec(r)
     ec = _mgr_cycle(state, lvl + 1, rc)
     if state.cycle_type == 2 and lvl + 1 < len(levels):
         # W-cycle second visit
         rc2 = rc - levels[lvl + 1].A.matvec(ec)
         ec = ec + _mgr_cycle(state, lvl + 1, rc2)
-    with record_function(f"mgr_L{lvl}_post"):
-        x = x + level.P.matvec(ec)
-        if level.post:
-            if level.f_kind != "none":
-                x = _f_relax(level, x, b)
-            if level.g_kind != "none":
-                x = _g_relax(level, x, b)
+    x = x + level.P.matvec(ec)
+    if level.post:
+        if level.f_kind != "none":
+            x = _f_relax(level, x, b)
+        if level.g_kind != "none":
+            x = _g_relax(level, x, b)
     return x
 
 
@@ -357,71 +356,74 @@ def setup_mgr(A_host: sp.csr_matrix, args, dofmap: Optional[np.ndarray],
         if errors:
             raise HypredrvError("; ".join(errors), ErrorCode.INVALID_VAL)
 
-        f_labels = _resolve_f_dofs(cfg.f_dofs, dof_labels)
-        f_mask = np.isin(labels, f_labels)
-        if not f_mask.any() or f_mask.all():
-            raise HypredrvError(
-                f"mgr level {key}: f_dofs {f_labels} select "
-                f"{int(f_mask.sum())} of {len(labels)} rows",
-                ErrorCode.INVALID_VAL)
-        f_rows = np.flatnonzero(f_mask)
-        c_rows = np.flatnonzero(~f_mask)
-        nF, nC = len(f_rows), len(c_rows)
-        n = A_l.shape[0]
+        # the level's host construction, F/C split to coarse product: one
+        # entry of the span hierarchy_host
+        with span("hierarchy_host"):
+            f_labels = _resolve_f_dofs(cfg.f_dofs, dof_labels)
+            f_mask = np.isin(labels, f_labels)
+            if not f_mask.any() or f_mask.all():
+                raise HypredrvError(
+                    f"mgr level {key}: f_dofs {f_labels} select "
+                    f"{int(f_mask.sum())} of {len(labels)} rows",
+                    ErrorCode.INVALID_VAL)
+            f_rows = np.flatnonzero(f_mask)
+            c_rows = np.flatnonzero(~f_mask)
+            nF, nC = len(f_rows), len(c_rows)
+            n = A_l.shape[0]
 
-        A_ff = sp.csr_matrix(A_l[f_rows][:, f_rows])
-        A_fc = sp.csr_matrix(A_l[f_rows][:, c_rows])
-        A_cf = sp.csr_matrix(A_l[c_rows][:, f_rows])
-        A_cc = sp.csr_matrix(A_l[c_rows][:, c_rows])
+            A_ff = sp.csr_matrix(A_l[f_rows][:, f_rows])
+            A_fc = sp.csr_matrix(A_l[f_rows][:, c_rows])
+            A_cf = sp.csr_matrix(A_l[c_rows][:, f_rows])
+            A_cc = sp.csr_matrix(A_l[c_rows][:, c_rows])
 
-        p_type = int(cfg.prolongation_type)
-        r_type = int(cfg.restriction_type)
-        # block size for blk-jacobi/cpr-like transfers: the number of
-        # distinct F labels per cell, validated against the label layout
-        # (interleaved ordering => the F labels repeat with period bsize);
-        # a non-uniform layout degrades the transfer to diagonal, with a
-        # warning
-        bsize = len(set(f_labels))
-        if bsize > 1:
-            f_lab = np.asarray(labels)[f_rows]
-            uniform = (nF % bsize == 0) and bool(
-                np.all(f_lab.reshape(-1, bsize) == f_lab[:bsize]))
-            if not uniform:
-                if p_type == 12 or r_type in (12, 13):
-                    log(2, f"mgr level {key}: non-uniform dof-label "
-                           f"layout (nF={nF}, {bsize} F labels) — "
-                           "blk-jacobi/cpr-like transfer degrades to "
-                           "diagonal")
-                bsize = 1
-        W_p, W_r = _build_transfers(A_ff, A_fc, A_cf, A_cc, p_type, r_type,
-                                    nF, nC, bsize)
-        P = _assemble_P(W_p, f_rows, c_rows, n, nC)
-        if r_type in (4, 5):
-            # approximate ideal restriction on the full level operator
-            # (ref vocab: mgr.c:1671-1680 air_1/air_1.5) through the lAIR
-            # batched local solves (precon/amg/air.py)
-            from .amg.air import lair_restriction
+            p_type = int(cfg.prolongation_type)
+            r_type = int(cfg.restriction_type)
+            # block size for blk-jacobi/cpr-like transfers: the number of
+            # distinct F labels per cell, validated against the label layout
+            # (interleaved ordering => the F labels repeat with period bsize);
+            # a non-uniform layout degrades the transfer to diagonal, with a
+            # warning
+            bsize = len(set(f_labels))
+            if bsize > 1:
+                f_lab = np.asarray(labels)[f_rows]
+                uniform = (nF % bsize == 0) and bool(
+                    np.all(f_lab.reshape(-1, bsize) == f_lab[:bsize]))
+                if not uniform:
+                    if p_type == 12 or r_type in (12, 13):
+                        log(2, f"mgr level {key}: non-uniform dof-label "
+                               f"layout (nF={nF}, {bsize} F labels) — "
+                               "blk-jacobi/cpr-like transfer degrades to "
+                               "diagonal")
+                    bsize = 1
+            W_p, W_r = _build_transfers(A_ff, A_fc, A_cf, A_cc, p_type, r_type,
+                                        nF, nC, bsize)
+            P = _assemble_P(W_p, f_rows, c_rows, n, nC)
+            if r_type in (4, 5):
+                # approximate ideal restriction on the full level operator
+                # (ref vocab: mgr.c:1671-1680 air_1/air_1.5) through the lAIR
+                # batched local solves (precon/amg/air.py)
+                from .amg.air import lair_restriction
 
-            cf_vec = np.ones(n, dtype=np.int64)
-            cf_vec[f_rows] = -1
-            R = lair_restriction(A_l, cf_vec, strong_th=0.25,
-                                 distance=1 if r_type == 4 else 2)
-        else:
-            R = _assemble_R(W_r, f_rows, c_rows, n, nC)
+                cf_vec = np.ones(n, dtype=np.int64)
+                cf_vec[f_rows] = -1
+                R = lair_restriction(A_l, cf_vec, strong_th=0.25,
+                                     distance=1 if r_type == 4 else 2)
+            else:
+                R = _assemble_R(W_r, f_rows, c_rows, n, nC)
 
-        # coarse operator (ref vocab: rap=0 non-galerkin=1 cpr-like-diag=2)
-        ctype = int(cfg.coarse_level_type)
-        if ctype == 0:
-            A_c = sp.csr_matrix(R @ A_l @ P)
-        else:
-            # Schur-like reduction with diagonal F inverse
-            diag_ff = A_ff.diagonal()
-            dinv = sp.diags(np.where(diag_ff != 0, 1.0 / diag_ff, 0.0))
-            A_c = sp.csr_matrix(A_cc - A_cf @ dinv @ A_fc)
-        if coarse_th > 0:
-            A_c.data[np.abs(A_c.data) < coarse_th] = 0.0
-            A_c.eliminate_zeros()
-        A_c.sort_indices()
+            # coarse operator (ref vocab: rap=0 non-galerkin=1 cpr-like-diag=2)
+            ctype = int(cfg.coarse_level_type)
+            if ctype == 0:
+                A_c = sp.csr_matrix(R @ A_l @ P)
+            else:
+                # Schur-like reduction with diagonal F inverse
+                diag_ff = A_ff.diagonal()
+                dinv = sp.diags(np.where(diag_ff != 0, 1.0 / diag_ff, 0.0))
+                A_c = sp.csr_matrix(A_cc - A_cf @ dinv @ A_fc)
+            if coarse_th > 0:
+                A_c.data[np.abs(A_c.data) < coarse_th] = 0.0
+                A_c.eliminate_zeros()
+            A_c.sort_indices()
 
         # components (per-component reuse: a `reuse:` block beside the
         # method key keeps the cached solver across setups)

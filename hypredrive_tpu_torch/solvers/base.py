@@ -3,7 +3,8 @@
 Mirrors the reference solver layer semantics (ref: src/internal/solver.c):
 ``Solver.apply`` computes *untimed* true residual norms before and after
 the timed solve (ref: solver.c:627-699); the stats table's "initial" and
-"relative" residual norms come from there.  The timed solve runs the
+"relative" residual norms come from there.  Both halves are one entry of
+the span ``residual_check`` (``core/trace.py``).  The timed solve runs the
 core through the device loop (``device_loop.py``): on a card the first
 solve with an operator and preconditioner includes capturing its graphs,
 as the JAX package's first solve includes compiling its core.
@@ -19,6 +20,7 @@ import numpy as np
 import torch
 
 from ..core.errors import ErrorCode, HypredrvError
+from ..core.trace import span
 from ..ops.vectors import group_of, reductions
 
 
@@ -80,8 +82,9 @@ class Solver:
         (ref: hypredrv_SolverApply, solver.c:627-699)."""
         A, b, x0 = system.A, system.b, system.x
         _, norm2 = reductions(group_of(A.matvec))
-        initial_res_norm = float(norm2(b - A.matvec(x0)))
-        b_norm = float(norm2(b))
+        with span("residual_check", n=0):   # the check's first half
+            initial_res_norm = float(norm2(b - A.matvec(x0)))
+            b_norm = float(norm2(b))
 
         if stats is not None:
             stats.annotate_begin("solve")
@@ -95,7 +98,8 @@ class Solver:
             stats.annotate_end("solve")
 
         # untimed true relative residual
-        true_norm = float(norm2(b - A.matvec(x)))
+        with span("residual_check"):
+            true_norm = float(norm2(b - A.matvec(x)))
         denom = b_norm if b_norm > 0 else (initial_res_norm or 1.0)
         rel = true_norm / denom if denom > 0 else true_norm
 

@@ -43,8 +43,12 @@ The kernel wrappers' launch counters (:func:`counted`) tick where a
 kernel is launched eagerly.  A capture records each graph's launches and
 restores the counters; every replay of an active body adds them, so the
 counts mean what the eager loop's meant.  Warm-up launches and masked
-replays are not counted; :data:`stats` counts the replays, masked
-replays, host reads, captures, graph nodes and the nodes replayed.
+replays are not counted.  The halo counters of the registry
+(:data:`REPLAYED`) are recorded and added the same way.  :data:`stats`
+(the registry of ``core/trace.py``) counts the replays, masked replays,
+host reads, captures, graph nodes and the nodes replayed; the spans
+``graph_lookup``, ``capture``, ``launch``, ``flag_wait`` and ``read_out``
+time the host's part of a solve.
 """
 
 from __future__ import annotations
@@ -52,13 +56,14 @@ from __future__ import annotations
 import collections
 import contextlib
 import threading
-import time
 import types
 import weakref
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
+
+from ..core.trace import STAT_KEYS, reset_stats, span, stats  # noqa: F401
 
 MAX_ENTRIES = 8          # cached solves (each: its buffers and graphs)
 _FINGERPRINT_DEPTH = 12  # nesting levels of a preconditioner state walked
@@ -71,15 +76,8 @@ _cache: "collections.OrderedDict[tuple, _Entry]" = collections.OrderedDict()
 _dead: List[tuple] = []
 _capture_stream: Optional[torch.cuda.Stream] = None
 
-STAT_KEYS = ("solves", "graph_solves", "replays", "masked", "host_reads",
-             "captures", "capture_s", "graphs", "max_nodes", "nodes",
-             "replayed_nodes")
-stats: Dict[str, float] = dict.fromkeys(STAT_KEYS, 0)
-
-
-def reset_stats() -> None:
-    """Zero :data:`stats`."""
-    stats.update(dict.fromkeys(STAT_KEYS, 0))
+# the registry's counters that a captured body adds to on every replay
+REPLAYED = ("halo_bytes", "halo_msgs")
 
 
 def counted():
@@ -92,24 +90,34 @@ def counted():
 
 
 def _counts():
-    return [f.launches for f in counted()]
+    return [f.launches for f in counted()] + [stats[k] for k in REPLAYED]
+
+
+def _set_counts(values) -> None:
+    fns = counted()
+    for f, n in zip(fns, values):
+        f.launches = n
+    stats.update(zip(REPLAYED, values[len(fns):]))
 
 
 def _add_counts(delta, sign=1):
-    for f, d in zip(counted(), delta):
+    fns = counted()
+    for f, d in zip(fns, delta):
         f.launches += sign * d
+    for k, d in zip(REPLAYED, delta[len(fns):]):
+        stats[k] += sign * d
 
 
 @contextlib.contextmanager
 def uncounted():
-    """Launches inside do not count: a timing loop or a comparison with a
-    plain version, not the work of a solve (every count ends as it began)."""
+    """Launches and halo sends inside do not count: a timing loop or a
+    comparison with a plain version, not the work of a solve (every count
+    ends as it began)."""
     saved = _counts()
     try:
         yield
     finally:
-        for f, n in zip(counted(), saved):
-            f.launches = n
+        _set_counts(saved)
 
 
 @contextlib.contextmanager
@@ -210,7 +218,6 @@ class _Entry:
         self.graphs: Dict[str, torch.cuda.CUDAGraph] = {}
         self.deltas: Dict[str, List[int]] = {}
         self.nodes: Dict[str, int] = {}
-        self.capture_s = 0.0
         self.pinned = torch.zeros(4, dtype=torch.bool, pin_memory=True)
         self.events = [torch.cuda.Event() for _ in range(4)]
 
@@ -235,7 +242,8 @@ class Runner:
         self.before = len(self.marks) - 1
         self.replays += 1
         if self.mode == "graph":
-            self.entry.graphs[name].replay()
+            with span("launch"):
+                self.entry.graphs[name].replay()
             self.replayed_nodes += self.entry.nodes[name]
             self.delta = self.entry.deltas[name]
             _add_counts(self.delta)
@@ -263,11 +271,12 @@ class Runner:
             return False
         self.host_reads += 1
         m = self.marks[self.before]
-        if self.mode == "graph":
-            self.entry.events[m].synchronize()
-            stop = bool(self.entry.pinned[m])
-        else:
-            stop = bool(m)
+        with span("flag_wait"):
+            if self.mode == "graph":
+                self.entry.events[m].synchronize()
+                stop = bool(self.entry.pinned[m])
+            else:
+                stop = bool(m)
         if stop:
             self.masked += 1
             _add_counts(self.delta, -1)
@@ -394,39 +403,39 @@ def _capture(loop: Loop, group=None) -> _Entry:
     from ..ops.krylov_small import graph_nodes
 
     entry = _Entry(loop)
-    t0 = time.perf_counter()
-    c0 = _counts()
-    side = _stream()
-    side.wait_stream(torch.cuda.current_stream())
-    pool = None
-    with torch.cuda.stream(side):
-        if group is not None:
-            import torch.distributed as dist
+    with span("capture"):       # capture_s; its entries count in captures
+        c0 = _counts()
+        side = _stream()
+        side.wait_stream(torch.cuda.current_stream())
+        pool = None
+        with torch.cuda.stream(side):
+            if group is not None:
+                import torch.distributed as dist
 
-            dist.all_reduce(torch.zeros(1, device=loop.device), group=group)
-        for name in loop.warm:
-            loop.bodies[name]()
-        for name, fn in loop.bodies.items():
-            g = torch.cuda.CUDAGraph(keep_graph=True)
-            before = _counts()
-            g.capture_begin(pool=pool)
-            try:
-                fn()
-            except BaseException:
-                with contextlib.suppress(Exception):
-                    g.capture_end()
-                raise
-            g.capture_end()
-            entry.deltas[name] = [b - a for a, b in zip(before, _counts())]
-            entry.nodes[name] = graph_nodes(g)
-            g.instantiate()
-            pool = g.pool() if pool is None else pool
-            entry.graphs[name] = g
-    torch.cuda.current_stream().wait_stream(side)
-    for f, c in zip(counted(), c0):
-        f.launches = c
-    torch.cuda.synchronize(loop.device)
-    entry.capture_s = time.perf_counter() - t0
+                dist.all_reduce(torch.zeros(1, device=loop.device),
+                                group=group)
+            for name in loop.warm:
+                loop.bodies[name]()
+            for name, fn in loop.bodies.items():
+                g = torch.cuda.CUDAGraph(keep_graph=True)
+                before = _counts()
+                g.capture_begin(pool=pool)
+                try:
+                    fn()
+                except BaseException:
+                    with contextlib.suppress(Exception):
+                        g.capture_end()
+                    raise
+                g.capture_end()
+                entry.deltas[name] = [b - a for a, b in
+                                      zip(before, _counts())]
+                entry.nodes[name] = graph_nodes(g)
+                g.instantiate()
+                pool = g.pool() if pool is None else pool
+                entry.graphs[name] = g
+        torch.cuda.current_stream().wait_stream(side)
+        _set_counts(c0)
+        torch.cuda.synchronize(loop.device)
     loop.bodies = {}      # the graphs hold the work; drop the callables
     return entry
 
@@ -446,12 +455,13 @@ def run(key: tuple, fns, make: Callable[[], Loop], inputs: Dict[str, object],
     mode = mode_for(dev, unroll, group)
     entry = full = owners = None
     if mode == "graph":
-        _drop_dead()
-        fp, owners = _fingerprint(fns)
-        full = (key, fp)
-        entry = _cache.get(full)
-        if entry is not None:
-            _cache.move_to_end(full)
+        with span("graph_lookup"):
+            _drop_dead()
+            fp, owners = _fingerprint(fns)
+            full = (key, fp)
+            entry = _cache.get(full)
+            if entry is not None:
+                _cache.move_to_end(full)
     loop = entry.loop if entry is not None else make()
     for name, v in inputs.items():
         getattr(loop, name).copy_(v)
@@ -472,8 +482,6 @@ def run(key: tuple, fns, make: Callable[[], Loop], inputs: Dict[str, object],
         _cache[full] = entry
         while len(_cache) > MAX_ENTRIES:
             _cache.popitem(last=False)
-        stats["captures"] += 1
-        stats["capture_s"] += entry.capture_s
         stats["graphs"] += len(entry.graphs)
         stats["nodes"] += sum(entry.nodes.values())
         stats["max_nodes"] = max(stats["max_nodes"],
@@ -495,11 +503,12 @@ def read_out(x: torch.Tensor, arrays, scalars, mode: str):
     read and the device tensors come back."""
     if mode == "unroll":
         return x, list(arrays), list(scalars)
-    if mode == "graph":
-        x = x.clone()
-    packed = torch.cat([a.reshape(-1).double() for a in arrays]
-                       + [torch.stack([s.double() for s in scalars])]).cpu()
-    vals = packed.numpy()
+    with span("read_out"):
+        if mode == "graph":
+            x = x.clone()
+        vals = torch.cat([a.reshape(-1).double() for a in arrays]
+                         + [torch.stack([s.double() for s in scalars])]
+                         ).cpu().numpy()
     out, k = [], 0
     for a in arrays:
         out.append(vals[k:k + a.numel()].reshape(a.shape))

@@ -1,0 +1,14 @@
+"""launch_ms: the host's seconds in the program's span ``launch`` (the
+replay calls of the device loop's CUDA graphs, on the card only) over the
+window, per solve, in ms.  Moves solve_ms.  Nothing where the span did
+not run in the window (the CPU; a program that has no such span)."""
+
+KEY = "launch"
+
+
+def read(ctx):
+    n0, n1 = ctx.before.get(KEY + "_n", 0), ctx.after.get(KEY + "_n", 0)
+    if not ctx.solves or n1 <= n0:
+        return None
+    return 1e3 * (ctx.after[KEY + "_s"] - ctx.before[KEY + "_s"]) \
+        / len(ctx.solves)

@@ -1,0 +1,15 @@
+"""residual_check_ms: the host's seconds in the program's span
+``residual_check`` (the true residuals before and after the Krylov solve,
+and the norm of b) over the window, per solve, in ms.  Moves solve_ms.
+Nothing where the span did not run in the window (a program that has no
+such span)."""
+
+KEY = "residual_check"
+
+
+def read(ctx):
+    n0, n1 = ctx.before.get(KEY + "_n", 0), ctx.after.get(KEY + "_n", 0)
+    if not ctx.solves or n1 <= n0:
+        return None
+    return 1e3 * (ctx.after[KEY + "_s"] - ctx.before[KEY + "_s"]) \
+        / len(ctx.solves)

@@ -388,6 +388,113 @@ def test_device_loop_graphs_match_eager_body(dev, method):
         assert torch.equal(g1[0], g2[0]) and torch.equal(g1[0], e[0])
 
 
+def test_device_loop_spans_on_the_graph_path(dev):
+    """The device loop's spans (``core/trace.py``) on the card: the first
+    solve captures (one ``capture`` entry, its seconds ``capture_s``),
+    every solve looks its graphs up once, each replay is one ``launch``,
+    each flag read but ``read_out`` one ``flag_wait``."""
+    from hypredrive_tpu_torch.solvers import device_loop as dl
+
+    mv, pc, b = _graph_problem(dev, "lap24_amg")
+    _, solve = GRAPH_SOLVES["pcg"]
+    dl.clear()
+    dl.reset_stats()
+    solve(mv, pc, b)
+    first = dict(dl.stats)
+    assert first["captures"] == 1 and "capture_n" not in first
+    assert first["capture_s"] > 0
+    for _ in range(2):
+        dl.reset_stats()
+        solve(mv, pc, b)
+        s = dict(dl.stats)
+        assert s["captures"] == 0
+        assert s["graph_lookup_n"] == s["read_out_n"] == 1
+        assert s["launch_n"] == s["replays"] > 0
+        assert s["flag_wait_n"] == s["host_reads"] - 1 > 0
+        assert s["launch_s"] > 0 and s["flag_wait_s"] > 0
+
+
+def _halo_loop(dev):
+    """A solve of the device loop whose step body counts what one halo
+    send to another rank counts (32 bytes, one message) and stops on a
+    device flag after three active steps."""
+    from hypredrive_tpu_torch.core.trace import count
+    from hypredrive_tpu_torch.solvers import device_loop as dl
+
+    b = torch.zeros(4, device=dev)
+
+    def make():
+        L = dl.Loop(b)
+        L.b = L.vec(4)
+        L.i = L.scalar(torch.int64)
+        L.stop = L.flag()
+
+        @L.body("start")
+        def start():
+            L.i.zero_()
+            L.stop.fill_(False)
+
+        @L.body("step")
+        def step():
+            L.i.add_((~L.stop).long())
+            L.stop.copy_(L.i >= 3)
+            L.b.add_(1.0)
+            count("halo_bytes", 32)
+            count("halo_msgs", 1)
+        return L
+
+    def schedule(R, L):
+        R.go("start")
+        R.mark(L.stop)
+        for _ in range(10):
+            R.go("step")
+            R.mark(L.stop)
+            if R.stopped():
+                break
+
+    L, mode = dl.run(("halo_counter_test",), (), make, {"b": b}, schedule)
+    _, _, (i,) = dl.read_out(L.b, [], [L.i], mode)
+    return int(i), mode
+
+
+def test_halo_counters_under_replay_equal_eager(dev):
+    """``halo_bytes`` and ``halo_msgs`` count under graph replay as in the
+    eager body: a body's share is recorded at capture and added on every
+    active replay.  A body that counts a send, and PCG on the one-card
+    mesh (8 shards of one card, so no send leaves the rank): graph counts
+    equal eager counts, launches included."""
+    from hypredrive_tpu_torch.parallel import (DistEllMatrix, make_mesh,
+                                               pad_vector)
+    from hypredrive_tpu_torch.solvers import device_loop as dl
+
+    runs = []
+    for eager in (True, False, False):
+        dl.reset_stats()
+        with (dl.eager() if eager else contextlib.nullcontext()):
+            i, mode = _halo_loop(dev)
+        runs.append((i, mode, dl.stats["halo_bytes"], dl.stats["halo_msgs"]))
+    assert [r[1] for r in runs] == ["eager", "graph", "graph"]
+    assert all(r[0] == 3 and r[2:] == (96, 3) for r in runs), runs
+
+    A = laplacian_3d_7pt(16)
+    mesh = make_mesh(8, dev)
+    D = DistEllMatrix.from_csr(A, mesh)
+    b = pad_vector(np.random.default_rng(6).standard_normal(A.shape[0]),
+                   D.shape[0], mesh)
+    counters = dl.counted()
+    runs = []
+    for eager in (True, False, False):
+        for f in counters:
+            f.launches = 0
+        dl.reset_stats()
+        with (dl.eager() if eager else contextlib.nullcontext()):
+            out = pcg_core(D.matvec, lambda r: r, b, torch.zeros_like(b),
+                           1e-8, 0.0, 200, True, 0)
+        runs.append((int(out[1]), [f.launches for f in counters],
+                     dl.stats["halo_bytes"], dl.stats["halo_msgs"]))
+    assert runs[0] == runs[1] == runs[2] and runs[0][1][0] > 0, runs
+
+
 @pytest.mark.parametrize("m", [30, 50, 300])
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
 def test_krylov_small_kernels_match_plain(dev, dtype, m):

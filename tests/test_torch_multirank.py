@@ -81,6 +81,7 @@ RANK_CODE = textwrap.dedent("""
     import hypredrive_tpu_torch.parallel as par
     from hypredrive_tpu_torch import convert
     from hypredrive_tpu_torch.core import runtime
+    from hypredrive_tpu_torch.core.trace import stats
     from hypredrive_tpu_torch.parallel.dryrun import dryrun_multichip
     from hypredrive_tpu_torch.parallel.mesh import Mesh
     from hypredrive_tpu_torch.tools import node_scaling
@@ -101,9 +102,9 @@ RANK_CODE = textwrap.dedent("""
         D = par.DistEllMatrix.from_csr(A, mesh)
         xl = par.pad_vector(x, D.shape[1], mesh)
         Dj = convert.dist_matrix(SimpleNamespace(**J), mesh)
-        sent = par.DistEllMatrix.halo_bytes
+        sent = stats["halo_bytes"]
         y = D.matvec(xl).numpy()
-        r = {"y": y, "sent": par.DistEllMatrix.halo_bytes - sent,
+        r = {"y": y, "sent": stats["halo_bytes"] - sent,
              "y_jax_shards": Dj.matvec(xl).numpy(),
              "csr": D.to_csr(), "csr_jax_shards": Dj.to_csr(),
              "send_idx": [i.numpy() for i in D.send_idx],
