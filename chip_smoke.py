@@ -193,7 +193,8 @@ import time
 from hypredrive_tpu_torch.core.entry import replay_ms
 from hypredrive_tpu_torch.solvers.device_loop import uncounted
 from hypredrive_tpu_torch.tools.bench_kernels import (
-    HBM_TB_S, dia_as_csr, library_spmv, spmv_bytes, spmv_row)
+    BOUND_SHARE_MAX, HBM_TB_S, bound_ms, dia_as_csr, library_spmv,
+    operand_copies, spmv_bytes, spmv_row)
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
@@ -717,6 +718,105 @@ class KernelChecks:
                          baseline_spmv(nr, E.data.numel(), dt)
                          if BASELINE else None)
 
+    def epilogues(self, shape_name, A, P=None):
+        """Each of the cycles' fused steps (``ops/epilogue.py``) on level
+        operator A, and the correction x + P·e on its prolongation P,
+        called through the operator's method as the cycles call it,
+        against its torch chain (``*_plain``) on the same vectors: bit for
+        bit (``torch.equal``), or the check fails.  Each row is the
+        instance that carries the epilogue (the DIA kernel on a DIA-only
+        operator, else the CSR kernel), with the device time of the whole
+        step and of the chain by graph replay over copies of the operator
+        and vectors that fill four times the L2, and its bound: the
+        matvec's bytes, plus each vector the epilogue reads or writes
+        beside the store of y."""
+        import copy
+
+        import torch
+        from hypredrive_tpu_torch.ops import epilogue as ep
+
+        theta, c1, c2 = 1.7, 0.61, 0.93
+        # name, vectors beside y's store, fused, plain; v = (b, x, u, z,
+        # d, e): five of A's rows, e of P's columns
+        steps = (
+            ("residual", A, 1, lambda M, v: M.residual(v[0], v[1]),
+             lambda M, v: ep.residual_plain(M, v[0], v[1])),
+            ("residual_z0", A, 3,
+             lambda M, v: M.residual(v[0], v[1], v[2], theta),
+             lambda M, v: ep.residual_plain(M, v[0], v[1], v[2], theta)),
+            ("cheby_middle", A, 4,
+             lambda M, v: M.cheby_step(v[0], v[3], v[4], v[2], c1, c2),
+             lambda M, v: ep.cheby_step_plain(M, v[0], v[3], v[4], v[2],
+                                              c1, c2)),
+            ("cheby_last", A, 4,
+             lambda M, v: M.cheby_step(v[0], v[3], v[4], v[2], c1, c2,
+                                       v[1], True),
+             lambda M, v: ep.cheby_step_plain(M, v[0], v[3], v[4], v[2],
+                                              c1, c2, v[1], True)),
+            ("jacobi", A, 2, lambda M, v: M.jacobi_step(v[1], v[0], v[2]),
+             lambda M, v: ep.jacobi_step_plain(M, v[1], v[0], v[2])))
+        if P is not None:
+            steps += (("add", P, 1, lambda M, v: M.matvec_add(v[1], v[5]),
+                       lambda M, v: ep.matvec_add_plain(M, v[1], v[5])),)
+        for name, M, n_extra, fused, plain in steps:
+            check(M.dense is None, f"{shape_name} {name}: stored dense")
+            dt = M.dtype
+            nr, nc = M.shape
+            size = dt.itemsize
+            kernel = ("dia_spmv_epilogue" if M.data is None
+                      else "csr_spmv_epilogue")
+            nbytes = n_extra * nr * size + sum(
+                spmv_bytes(part, M, size) for part, t in (
+                    ("dia_spmv", M.dia_data), ("csr_spmv", M.data))
+                if t is not None)
+
+            def vectors():
+                v = [torch.as_tensor(self.rng.standard_normal(nr), dtype=dt,
+                                     device="cuda") for _ in range(5)]
+                v[2] = v[2].abs()
+                return v + [torch.as_tensor(self.rng.standard_normal(nc),
+                                            dtype=dt, device="cuda")]
+
+            per_copy = nbytes + 5 * nr * size
+            mats = [M] + [copy.deepcopy(M) for _ in
+                          range(operand_copies(per_copy) - 1)]
+            vecs = [vectors() for _ in mats]
+            with uncounted():
+                got, want = fused(M, vecs[0]), plain(M, vecs[0])
+                got = got if isinstance(got, tuple) else (got,)
+                want = want if isinstance(want, tuple) else (want,)
+                equal = len(got) == len(want) and all(
+                    g.dtype == w.dtype and torch.equal(g, w)
+                    for g, w in zip(got, want))
+                err = max(float((g.double() - w.double()).abs().max())
+                          for g, w in zip(got, want))
+                scale = max(float(w.abs().max()) for w in want) or 1.0
+                ms = replay_ms([lambda M=M, v=v: fused(M, v)
+                                for M, v in zip(mats, vecs)])
+                plain_ms = replay_ms([lambda M=M, v=v: plain(M, v)
+                                      for M, v in zip(mats, vecs)])
+            dtn = str(dt).replace("torch.", "")
+            row = {"kernel": kernel, "step": name,
+                   "shape": f"{shape_name} {name} {nr}x{nc}", "dtype": dtn,
+                   "bit_identical": equal, "max_abs_err": err,
+                   "max_rel_err": err / scale, "device_ms": ms,
+                   "plain_device_ms": plain_ms, "bytes": nbytes,
+                   "bound_ms": bound_ms(nbytes), "bound_by": "bytes",
+                   "library_ms": None, "operand_copies": len(mats)}
+            row["bound_share"] = row["bound_ms"] / ms
+            row["tb_s"] = nbytes / (ms * 1e-3) / 1e12
+            self.rows.append(row)
+            print(f"  {kernel:17s} {row['shape']:38s} {dtn:8s} "
+                  f"bit-identical {equal} (max abs {err:.3e}); device: "
+                  f"fused {ms:.4f} plain chain {plain_ms:.4f} bound "
+                  f"{row['bound_ms']:.4f} ms ({100 * row['bound_share']:.1f}"
+                  f"%), {row['tb_s']:.2f} TB/s, {len(mats)} operand copies")
+            check(equal, f"{kernel} {row['shape']} {dtn}: differs from the "
+                         f"torch chain by {err:.3e}")
+            check(row["bound_share"] <= BOUND_SHARE_MAX,
+                  f"{kernel} {row['shape']}: {ms:.4f} ms beats the bound "
+                  f"{row['bound_ms']:.4f} ms")
+
 
 def tile_sweep(shape_name, E):
     """Device ms (graph replay) and event ms of the CSR kernel on E's
@@ -753,7 +853,9 @@ def tile_sweep(shape_name, E):
 def phase_kernels(report):
     """Each kernel against its plain version at the 128³ solve's shapes:
     the fine operator and level 0's P and R and level 1's A of the
-    hierarchy the lap128 path set up."""
+    hierarchy the lap128 path set up; then the cycles' fused steps on A0
+    (with the correction on P0) and A1 in float64, each bit for bit
+    against its torch chain."""
     import torch
 
     state = KEEP.pop("lap128_state")
@@ -771,6 +873,9 @@ def phase_kernels(report):
                               (f"A1 {lv1.A.shape[0]}x{lv1.A.shape[1]}",
                                lv1.A)):
             checks.matrix(shape_name, E, dt)
+    check(A.dtype == torch.float64, f"lap128's A0 is {A.dtype}")
+    checks.epilogues(f"A0 {A.shape[0]}x{A.shape[1]}", A, lv0.P)
+    checks.epilogues(f"A1 {lv1.A.shape[0]}x{lv1.A.shape[1]}", lv1.A)
     report["kernel_checks"] = checks.rows
     report["csr_tile_sweep"] = tile_sweep("A1", lv1.A)
     del state, A
@@ -1020,8 +1125,8 @@ def phase_mgr64(report):
     import numpy as np
     import torch
     from hypredrive_tpu_torch.ops.csr import multiphysics_fv_system
-    from hypredrive_tpu_torch.ops.csr_spmv import csr_spmv
-    from hypredrive_tpu_torch.ops.dia_spmv import dia_spmv
+    from hypredrive_tpu_torch.ops.csr_spmv import csr_spmv, csr_spmv_epilogue
+    from hypredrive_tpu_torch.ops.dia_spmv import dia_spmv, dia_spmv_epilogue
 
     t0 = time.perf_counter()
     A, dofmap = multiphysics_fv_system(64, 3, contrast=0.3, coupling=0.12,
@@ -1064,11 +1169,12 @@ def phase_mgr64(report):
           f"{res.solve_time:.4f} s; history vs the JAX package: max rel "
           f"dev {dev:.3e}")
     drv.reset_initial_guess()
-    n0 = dia_spmv.launches + csr_spmv.launches
+    spmv = (dia_spmv, csr_spmv, dia_spmv_epilogue, csr_spmv_epilogue)
+    n0 = sum(f.launches for f in spmv)
     warm = drv.linear_solver_apply()
     out["solve_warm_s"] = warm.solve_time
     out["kernel_launches_per_iter"] = (
-        (dia_spmv.launches + csr_spmv.launches - n0) / max(1, warm.iters))
+        (sum(f.launches for f in spmv) - n0) / max(1, warm.iters))
     print(f"  second solve: {warm.solve_time:.4f} s, "
           f"{out['kernel_launches_per_iter']:.1f} DIA+CSR launches per "
           f"GMRES iteration")
@@ -2881,7 +2987,8 @@ def phase_example_output(report):
 
 def phase_bench_kernels(report):
     """``tools/bench_kernels.py`` at 64³ float32: the probe, the triad,
-    the DIA and CSR rows (each within rel 1e-5 of scipy) and the V-cycle."""
+    the DIA and CSR rows (each within rel 1e-5 of scipy), the epilogue rows
+    (each bit for bit against its torch chain) and the V-cycle."""
     from hypredrive_tpu_torch.tools import bench_kernels
 
     out = report["bench_kernels"] = bench_kernels.run(64, "float32")
@@ -2894,6 +3001,11 @@ def phase_bench_kernels(report):
         check(r["rel_err"] <= BENCH_KERNELS_TOL,
               f"bench_kernels {r['name']} {r['shape']}: rel err "
               f"{r['rel_err']:.3e} > {BENCH_KERNELS_TOL}")
+    fused = [r for r in out["rows"] if r["name"] == "epilogue"]
+    check(fused, "bench_kernels: no epilogue rows")
+    for r in fused:
+        check(r["bit_equal"], f"bench_kernels epilogue {r['shape']}: "
+                              "differs from the torch chain")
 
 
 def phase_plot_convergence(report):
@@ -3132,6 +3244,15 @@ KERNELS = {
     "csr_spmv": ("hypredrive_tpu_torch/csrc/csr_spmv.cu",
                  "hypredrive_tpu/ops/pallas_spmv.py:85 (K3); "
                  "hypredrive_tpu/ops/pallas_spmv.py:216 (K4)"),
+    # the same kernels with the cycles' vector chain in their epilogue
+    # (csrc/spmv_epilogue.cuh): the device form of the JAX package's
+    # smoother and correction arithmetic around its SpMV
+    "dia_spmv_epilogue": ("hypredrive_tpu_torch/csrc/dia_spmv.cu",
+                          "none (XLA code around K1/K2): hypredrive_tpu/"
+                          "precon/amg/cycle.py smoother and correction"),
+    "csr_spmv_epilogue": ("hypredrive_tpu_torch/csrc/csr_spmv.cu",
+                          "none (XLA code around K3/K4): hypredrive_tpu/"
+                          "precon/amg/cycle.py smoother and correction"),
     # not TPU kernels: the device form of XLA code in the jitted loop
     "givens_update": ("hypredrive_tpu_torch/csrc/krylov_small.cu",
                       "none (XLA code): hypredrive_tpu/solvers/gmres.py:107 "
@@ -3153,9 +3274,10 @@ def launch_counters():
 # a 7-point Laplacian without AMG, all on diagonals; the GMRES and FGMRES
 # paths also launch the Givens and back-substitution kernels
 BOTH = ("dia_spmv", "csr_spmv")
+EPILOGUES = ("dia_spmv_epilogue", "csr_spmv_epilogue")
 ARNOLDI = BOTH + ("givens_update", "hessenberg_backsolve")
 PATHS = (("ex1", phase_ex1, BOTH), ("lap64", phase_64, BOTH),
-         ("lap128", phase_128, BOTH), ("mgr_ex3", phase_mgr_ex3, ARNOLDI),
+         ("lap128", phase_128, BOTH + EPILOGUES), ("mgr_ex3", phase_mgr_ex3, ARNOLDI),
          ("mgr_ex5", phase_mgr_ex5, ARNOLDI),
          ("jacobi_ex1", phase_jacobi_ex1, ("dia_spmv",)),
          ("mgr_64", phase_mgr64, ARNOLDI),
@@ -3255,8 +3377,9 @@ def main() -> int:
             counts = {k: f.launches for k, f in counters.items()}
             report.setdefault("launches_by_path", {})[name] = counts
             print(f"{name} kernel launches: {counts}")
-            for k in kernels_run:
+            for k in counts:
                 launches[k] += counts[k]
+            for k in kernels_run:
                 if counts[k] <= 0:
                     failures.append(f"launches: {name} never launched {k}")
         report["launches"] = launches

@@ -44,7 +44,11 @@ reaches a counter.
 ``halo_bytes`` and ``halo_msgs`` count the bytes and messages a rank's
 halo exchanges send to other ranks; a captured body adds its share on
 every replay (``device_loop``).  ``tools/profile_solve.py`` prints them,
-and the transfers' bytes, beside the spans.
+and the transfers' bytes, beside the spans.  ``epilogue_fused`` and
+``epilogue_plain`` count the cycles' steps of ``ops/epilogue.py`` that
+ran inside an SpMV kernel and those that ran as torch chains, one a
+call of an ``EllMatrix`` step method; they too are added on every
+replay.
 """
 
 from __future__ import annotations
@@ -70,7 +74,9 @@ STAT_KEYS = (
     "hierarchy_host_s", "hierarchy_host_n",
     "operator_build_s", "operator_build_n",
     # the mesh's halo exchanges to other ranks
-    "halo_bytes", "halo_msgs")
+    "halo_bytes", "halo_msgs",
+    # the cycles' steps in an SpMV kernel's epilogue, and as torch chains
+    "epilogue_fused", "epilogue_plain")
 stats: Dict[str, float] = dict.fromkeys(STAT_KEYS, 0)
 
 

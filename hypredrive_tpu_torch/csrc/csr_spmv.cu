@@ -62,11 +62,24 @@
 // from csr_tiles for this indptr; the wrapper and the device matrix ensure
 // both.
 //
+// The kernel's kEpi instance is the same walk with an epilogue in place of
+// the store (csrc/spmv_epilogue.cuh): where the plain instance stores a
+// row's y (added to the y it reads when accumulating: the DIA part's), it
+// applies the epilogue to that value, so the summation order, the ring and
+// the copies are the plain kernel's.  Every row of the operator lies in one
+// tile, so every row gets its epilogue, rows with no entry in the remainder
+// included (their sum is 0, or the DIA part's y alone).  It is the last
+// kernel of a matvec whose operator has a CSR remainder.  One kernel with a
+// flag, not two kernels around a shared device function: that cost the
+// plain kernel's register allocation and 4% on the 128³ R0 (H100).
+//
 // Plain C interface, bound from Python with ctypes
 // (hypredrive_tpu_torch/ops/csr_spmv.py).
 
 #include <cuda_runtime.h>
 #include <cstdint>
+
+#include "spmv_epilogue.cuh"
 
 namespace {
 
@@ -235,13 +248,16 @@ __device__ __forceinline__ Item make_item(const int* t_row,
   return it;
 }
 
-template <typename T>
+// kEpi: the epilogue kernel, which applies ep to each row's value where
+// the plain kernel stores it (y read when accumulating, never written)
+template <typename T, bool kEpi>
 __global__ void __launch_bounds__(kThreads, 4)
 csr_spmv_tiled(const int64_t* __restrict__ indptr,
                const int32_t* __restrict__ indices,
                const T* __restrict__ data, const T* __restrict__ x,
                T* __restrict__ y, const int32_t* __restrict__ tiles,
-               int64_t n_tiles, int accumulate) {
+               int64_t n_tiles, int accumulate,
+               const hdtt::Epilogue<T> ep) {
   extern __shared__ __align__(16) unsigned char ring[];
   __shared__ Item desc[kStages];
   __shared__ uint64_t full[kStages];  // a slot's bulk copies have landed
@@ -365,7 +381,12 @@ csr_spmv_tiled(const int64_t* __restrict__ indptr,
         const int r = tid + p * kThreads;
         if (r < it.nrows) {
           T* out = y + it.row0 + r;
-          *out = accumulate ? *out + acc[p] : acc[p];
+          const T v = accumulate ? *out + acc[p] : acc[p];
+          if constexpr (kEpi) {
+            hdtt::apply(ep, it.row0 + r, v);
+          } else {
+            *out = v;
+          }
         }
       }
       continue;
@@ -399,58 +420,89 @@ csr_spmv_tiled(const int64_t* __restrict__ indptr,
           carry = acc;
         } else {
           T* out = y + it.row0 + r;
-          *out = accumulate ? *out + acc : acc;
+          const T v = accumulate ? *out + acc : acc;
+          if constexpr (kEpi) {
+            hdtt::apply(ep, it.row0 + r, v);
+          } else {
+            *out = v;
+          }
         }
       }
     }
   }
 }
 
-template <typename T>
-int launch(const void* indptr, const void* indices, const void* data,
-           const void* x, void* y, int64_t n_rows, const void* tiles,
-           int64_t n_tiles, int accumulate, void* stream) {
-  if (n_rows < 0 || n_tiles < 0 || (n_rows > 0 && n_tiles == 0)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  (void)cudaGetLastError();  // clear any stale error before this launch
-  if (n_rows == 0) return 0;
-  constexpr int smem = kStages * slot_bytes<T>();
-  // per card: SMs x resident blocks and the shared-memory opt-in, found on
-  // the first launch there (the caller makes the operands' card current)
-  static int64_t grid_caps[kMaxDevices] = {};
+// per card and kernel: SMs x resident blocks, with the shared-memory
+// opt-in made, on the first launch there (the caller makes the operands'
+// card current)
+template <typename Kernel>
+int grid_cap_of(Kernel kernel, int smem, int64_t* caps, int64_t* cap) {
   int dev = 0;
-  cudaError_t de = cudaGetDevice(&dev);
-  if (de != cudaSuccess) return static_cast<int>(de);
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
   if (dev < 0 || dev >= kMaxDevices) {
     return static_cast<int>(cudaErrorInvalidDevice);
   }
-  int64_t& grid_cap = grid_caps[dev];
-  if (grid_cap == 0) {
-    cudaError_t e = cudaFuncSetAttribute(
-        csr_spmv_tiled<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (caps[dev] == 0) {
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
     int sms = 0, per_sm = 0;
     if (e == cudaSuccess) {
       e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     }
     if (e == cudaSuccess) {
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, csr_spmv_tiled<T>, kThreads, smem);
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        kThreads, smem);
     }
     if (e != cudaSuccess) return static_cast<int>(e);
     if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
-    grid_cap = sms * per_sm;
+    caps[dev] = static_cast<int64_t>(sms) * per_sm;
   }
+  *cap = caps[dev];
+  return 0;
+}
+
+// ep null: y (=|+=) A·x; else the epilogue *ep in place of the store (y
+// read when accumulating, never written)
+template <typename T>
+int launch(const void* indptr, const void* indices, const void* data,
+           const void* x, void* y, int64_t n_rows, const void* tiles,
+           int64_t n_tiles, int accumulate, const hdtt::EpilogueArgs* ep,
+           void* stream) {
+  if (n_rows < 0 || n_tiles < 0 || (n_rows > 0 && n_tiles == 0) ||
+      (ep && !hdtt::valid(*ep))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  (void)cudaGetLastError();  // clear any stale error before this launch
+  if (n_rows == 0) return 0;
+  constexpr int smem = kStages * slot_bytes<T>();
+  static int64_t grid_caps[2][kMaxDevices] = {};  // plain, epilogue
+  int64_t grid_cap = 0;
+  const int rc =
+      ep ? grid_cap_of(csr_spmv_tiled<T, true>, smem, grid_caps[1], &grid_cap)
+         : grid_cap_of(csr_spmv_tiled<T, false>, smem, grid_caps[0],
+                       &grid_cap);
+  if (rc != 0) return rc;
   // one wave of resident blocks, or more when a block would take more
   // than kBlockTiles tiles
   int64_t grid = n_tiles < grid_cap ? n_tiles : grid_cap;
   const int64_t min_grid = (n_tiles + kBlockTiles - 1) / kBlockTiles;
   if (grid < min_grid) grid = min_grid;
-  csr_spmv_tiled<T><<<static_cast<unsigned>(grid), kThreads, smem,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int64_t*>(indptr), static_cast<const int32_t*>(indices),
-      static_cast<const T*>(data), static_cast<const T*>(x), static_cast<T*>(y),
-      static_cast<const int32_t*>(tiles), n_tiles, accumulate);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* ip = static_cast<const int64_t*>(indptr);
+  const auto* ix = static_cast<const int32_t*>(indices);
+  const auto* tl = static_cast<const int32_t*>(tiles);
+  const auto blocks = static_cast<unsigned>(grid);
+  if (ep) {
+    csr_spmv_tiled<T, true><<<blocks, kThreads, smem, s>>>(
+        ip, ix, static_cast<const T*>(data), static_cast<const T*>(x),
+        static_cast<T*>(y), tl, n_tiles, accumulate, hdtt::typed<T>(*ep));
+  } else {
+    csr_spmv_tiled<T, false><<<blocks, kThreads, smem, s>>>(
+        ip, ix, static_cast<const T*>(data), static_cast<const T*>(x),
+        static_cast<T*>(y), tl, n_tiles, accumulate, hdtt::Epilogue<T>{});
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -461,17 +513,19 @@ extern "C" {
 int hdtt_csr_spmv_f32(const void* indptr, const void* indices,
                       const void* data, const void* x, void* y,
                       int64_t n_rows, const void* tiles, int64_t n_tiles,
-                      int accumulate, void* stream) {
+                      int accumulate, const hdtt::EpilogueArgs* ep,
+                      void* stream) {
   return launch<float>(indptr, indices, data, x, y, n_rows, tiles, n_tiles,
-                       accumulate, stream);
+                       accumulate, ep, stream);
 }
 
 int hdtt_csr_spmv_f64(const void* indptr, const void* indices,
                       const void* data, const void* x, void* y,
                       int64_t n_rows, const void* tiles, int64_t n_tiles,
-                      int accumulate, void* stream) {
+                      int accumulate, const hdtt::EpilogueArgs* ep,
+                      void* stream) {
   return launch<double>(indptr, indices, data, x, y, n_rows, tiles, n_tiles,
-                        accumulate, stream);
+                        accumulate, ep, stream);
 }
 
 }  // extern "C"

@@ -19,11 +19,18 @@
 // values, one x, one y); neighbouring rows share x through L1/L2, so x is
 // read from HBM about once.  No shared memory, no atomics.
 //
+// dia_spmv_epilogue is the same row sum with an epilogue in place of the
+// store of y (csrc/spmv_epilogue.cuh): one thread owns its row, so the
+// epilogue reads that row of its vectors, coalesced as the diagonals are.
+// It is the last kernel of a matvec whose operator has no CSR remainder.
+//
 // Plain C interface, bound from Python with ctypes
 // (hypredrive_tpu_torch/ops/dia_spmv.py).
 
 #include <cuda_runtime.h>
 #include <cstdint>
+
+#include "spmv_epilogue.cuh"
 
 namespace {
 
@@ -36,12 +43,10 @@ struct DiaOffsets {
 };
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-dia_spmv_kernel(const T* __restrict__ dia, const T* __restrict__ x,
-                T* __restrict__ y, int64_t n_rows, int64_t n_cols,
-                const DiaOffsets offs) {
-  const int64_t r = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
-  if (r >= n_rows) return;
+__device__ __forceinline__ T dia_row(const T* __restrict__ dia,
+                                     const T* __restrict__ x, int64_t r,
+                                     int64_t n_rows, int64_t n_cols,
+                                     const DiaOffsets& offs) {
   T acc = T(0);
   for (int d = 0; d < offs.n; ++d) {
     const int64_t c = r + offs.off[d];
@@ -49,14 +54,36 @@ dia_spmv_kernel(const T* __restrict__ dia, const T* __restrict__ x,
       acc += __ldg(dia + d * n_rows + r) * __ldg(x + c);
     }
   }
-  y[r] = acc;
+  return acc;
 }
 
 template <typename T>
+__global__ void __launch_bounds__(kThreads)
+dia_spmv_kernel(const T* __restrict__ dia, const T* __restrict__ x,
+                T* __restrict__ y, int64_t n_rows, int64_t n_cols,
+                const DiaOffsets offs) {
+  const int64_t r = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
+  if (r >= n_rows) return;
+  y[r] = dia_row(dia, x, r, n_rows, n_cols, offs);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+dia_spmv_epilogue(const T* __restrict__ dia, const T* __restrict__ x,
+                  int64_t n_rows, int64_t n_cols, const DiaOffsets offs,
+                  const hdtt::Epilogue<T> ep) {
+  const int64_t r = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
+  if (r >= n_rows) return;
+  hdtt::apply(ep, r, dia_row(dia, x, r, n_rows, n_cols, offs));
+}
+
+// ep null: y = A·x; else the epilogue *ep in place of y (y unused)
+template <typename T>
 int launch(const void* dia, const int32_t* h_offsets, int n_diag,
            const void* x, void* y, int64_t n_rows, int64_t n_cols,
-           void* stream) {
-  if (n_diag < 1 || n_diag > kMaxDiags || n_rows < 0 || n_cols < 0) {
+           const hdtt::EpilogueArgs* ep, void* stream) {
+  if (n_diag < 1 || n_diag > kMaxDiags || n_rows < 0 || n_cols < 0 ||
+      (ep && !hdtt::valid(*ep))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   (void)cudaGetLastError();  // clear any stale error before this launch
@@ -65,10 +92,17 @@ int launch(const void* dia, const int32_t* h_offsets, int n_diag,
   offs.n = n_diag;
   for (int d = 0; d < n_diag; ++d) offs.off[d] = h_offsets[d];
   const int64_t blocks = (n_rows + kThreads - 1) / kThreads;
-  dia_spmv_kernel<T><<<static_cast<unsigned>(blocks), kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(dia), static_cast<const T*>(x),
-      static_cast<T*>(y), n_rows, n_cols, offs);
+  if (ep) {
+    dia_spmv_epilogue<T><<<static_cast<unsigned>(blocks), kThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const T*>(dia), static_cast<const T*>(x), n_rows, n_cols,
+        offs, hdtt::typed<T>(*ep));
+  } else {
+    dia_spmv_kernel<T><<<static_cast<unsigned>(blocks), kThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const T*>(dia), static_cast<const T*>(x),
+        static_cast<T*>(y), n_rows, n_cols, offs);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -78,14 +112,14 @@ extern "C" {
 
 int hdtt_dia_spmv_f32(const void* dia, const int32_t* offsets, int n_diag,
                       const void* x, void* y, int64_t n_rows, int64_t n_cols,
-                      void* stream) {
-  return launch<float>(dia, offsets, n_diag, x, y, n_rows, n_cols, stream);
+                      const hdtt::EpilogueArgs* ep, void* stream) {
+  return launch<float>(dia, offsets, n_diag, x, y, n_rows, n_cols, ep, stream);
 }
 
 int hdtt_dia_spmv_f64(const void* dia, const int32_t* offsets, int n_diag,
                       const void* x, void* y, int64_t n_rows, int64_t n_cols,
-                      void* stream) {
-  return launch<double>(dia, offsets, n_diag, x, y, n_rows, n_cols, stream);
+                      const hdtt::EpilogueArgs* ep, void* stream) {
+  return launch<double>(dia, offsets, n_diag, x, y, n_rows, n_cols, ep, stream);
 }
 
 }  // extern "C"

@@ -15,10 +15,15 @@ per entry plus indptr, y and x once.
 :func:`csr_spmv_plain` for a CPU tensor; ``csr_spmv.launches`` counts the
 kernel launches.  With ``out`` given both add into it (``out += A·x``),
 which makes the hybrid DIA + CSR matvec two launches into one vector.
+:func:`csr_spmv_epilogue` launches the same kernel with an epilogue
+(``ops/epilogue.py``; CUDA only), which stores that expression of y
+(``out + A·x`` where ``out`` is given) in place of y;
+``csr_spmv_epilogue.launches`` counts its launches.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import numpy as np
@@ -97,6 +102,27 @@ def _check(indptr, indices, data, x, n_rows, tiles, out):
         raise ValueError(f"csr_spmv: tensors on several devices {devs}")
 
 
+def _launch(indptr, indices, data, x, n_rows, tiles, y, add, ep) -> None:
+    """The kernel into ``y`` (adding into it with ``add``), or with the
+    epilogue ``ep`` in place of the store of y (adding ``y`` first where
+    it is given)."""
+    if x.device.type != "cuda":
+        raise ValueError(f"csr_spmv: unsupported device {x.device}")
+    tensors = (indptr, indices, data, x, tiles) \
+        + ((y,) if y is not None else ())
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("csr_spmv: tensors must be contiguous")
+    fn = (kernels.lib().hdtt_csr_spmv_f32 if x.dtype == torch.float32
+          else kernels.lib().hdtt_csr_spmv_f64)
+    with torch.cuda.device(x.device):   # launch on x's card
+        rc = fn(indptr.data_ptr(), indices.data_ptr(), data.data_ptr(),
+                x.data_ptr(), None if y is None else y.data_ptr(), n_rows,
+                tiles.data_ptr(), tiles.shape[1] - 1, int(add),
+                None if ep is None else ctypes.byref(ep),
+                torch.cuda.current_stream(x.device).cuda_stream)
+    kernels.check(rc, "csr_spmv")
+
+
 def csr_spmv(indptr: torch.Tensor, indices: torch.Tensor,
              data: torch.Tensor, x: torch.Tensor, n_rows: int,
              tiles: torch.Tensor,
@@ -108,24 +134,27 @@ def csr_spmv(indptr: torch.Tensor, indices: torch.Tensor,
     _check(indptr, indices, data, x, n_rows, tiles, out)
     if x.device.type == "cpu":
         return csr_spmv_plain(indptr, indices, data, x, n_rows, out)
-    if x.device.type != "cuda":
-        raise ValueError(f"csr_spmv: unsupported device {x.device}")
-    tensors = (indptr, indices, data, x, tiles) \
-        + ((out,) if out is not None else ())
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("csr_spmv: tensors must be contiguous")
     y = torch.empty(n_rows, dtype=x.dtype, device=x.device) \
         if out is None else out
-    fn = (kernels.lib().hdtt_csr_spmv_f32 if x.dtype == torch.float32
-          else kernels.lib().hdtt_csr_spmv_f64)
-    with torch.cuda.device(x.device):   # launch on x's card
-        rc = fn(indptr.data_ptr(), indices.data_ptr(), data.data_ptr(),
-                x.data_ptr(), y.data_ptr(), n_rows, tiles.data_ptr(),
-                tiles.shape[1] - 1, int(out is not None),
-                torch.cuda.current_stream(x.device).cuda_stream)
-    kernels.check(rc, "csr_spmv")
+    _launch(indptr, indices, data, x, n_rows, tiles, y, out is not None,
+            None)
     csr_spmv.launches += 1
     return y
 
 
+def csr_spmv_epilogue(indptr: torch.Tensor, indices: torch.Tensor,
+                      data: torch.Tensor, x: torch.Tensor, n_rows: int,
+                      tiles: torch.Tensor, out: Optional[torch.Tensor],
+                      ep) -> None:
+    """The CUDA kernel storing the epilogue ``ep`` (an
+    ``epilogue.EpilogueArgs`` over vectors on x's card) of
+    ``out + A_csr · x`` (A_csr · x where ``out`` is None) in place of y;
+    ``out`` stays as it is."""
+    _check(indptr, indices, data, x, n_rows, tiles, out)
+    _launch(indptr, indices, data, x, n_rows, tiles, out, out is not None,
+            ep)
+    csr_spmv_epilogue.launches += 1
+
+
 csr_spmv.launches = 0
+csr_spmv_epilogue.launches = 0

@@ -14,7 +14,9 @@ native census), so both packages store the same diagonals.  What differs:
 
 On a CUDA tensor every matvec of a sparse operator is the DIA kernel, then
 the CSR kernel adding into the same ``y`` (``ops/dia_spmv.py``,
-``ops/csr_spmv.py``).
+``ops/csr_spmv.py``).  The cycles' methods :meth:`EllMatrix.residual`,
+``cheby_step``, ``jacobi_step`` and ``matvec_add`` run the same kernels
+with an epilogue on the last one (``ops/epilogue.py``).
 """
 
 from __future__ import annotations
@@ -27,9 +29,10 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
-from ..core.trace import span
-from .csr_spmv import csr_spmv, csr_tiles
-from .dia_spmv import dia_spmv
+from ..core.trace import count, span
+from . import epilogue
+from .csr_spmv import csr_spmv, csr_spmv_epilogue, csr_tiles
+from .dia_spmv import dia_spmv, dia_spmv_epilogue
 
 # diagonals covering at least this fraction of rows go to the DIA part
 DIA_MIN_FRAC = 0.25
@@ -174,6 +177,82 @@ class EllMatrix:
         if y is None:
             y = torch.zeros(n_rows, dtype=x.dtype, device=x.device)
         return y
+
+    # -- the cycles' steps (ops/epilogue.py) ---------------------------
+
+    def _fused(self, x: torch.Tensor) -> bool:
+        """Whether the kernels run a step on x: a sparse operator with a
+        DIA or CSR part, on a card."""
+        return (x.device.type == "cuda" and self.dense is None
+                and (self.dia_data is not None or self.data is not None))
+
+    def _matvec_epilogue(self, v: torch.Tensor, kind: int, s0: float = 0.0,
+                         s1: float = 0.0, /, **vectors) -> None:
+        """The matvec A·v with the epilogue in its last kernel: the DIA
+        kernel where there is no CSR remainder, else the CSR kernel,
+        adding the DIA part's y where there is one.  Counts the step as
+        fused."""
+        n_rows, n_cols = self.shape
+        ep = epilogue.args(kind, n_rows, v, s0, s1, **vectors)
+        if self.data is None:
+            dia_spmv_epilogue(self.dia_data, self.dia_offsets, v, n_cols, ep)
+        else:
+            y = (dia_spmv(self.dia_data, self.dia_offsets, v, n_cols)
+                 if self.dia_data is not None else None)
+            csr_spmv_epilogue(self.indptr, self.indices, self.data, v,
+                              n_rows, self.tiles, y, ep)
+        count("epilogue_fused")
+
+    def residual(self, b: torch.Tensor, x: torch.Tensor,
+                 u: Optional[torch.Tensor] = None,
+                 theta: Optional[float] = None):
+        """b − A·x; with ``u`` and ``theta`` the pair (r, u ⊙ r / θ)."""
+        if not self._fused(x):
+            count("epilogue_plain")
+            return epilogue.residual_plain(self, b, x, u, theta)
+        r = torch.empty_like(b)
+        z0 = None if u is None else torch.empty_like(b)
+        self._matvec_epilogue(
+            x, epilogue.RESIDUAL,
+            0.0 if u is None else epilogue.reciprocal(theta, b.dtype),
+            b=b.contiguous(), u=u, out=r, out2=z0)
+        return r if u is None else (r, z0)
+
+    def cheby_step(self, r, z, d, u, c1: float, c2: float, x=None,
+                   last: bool = False):
+        """(z', d') of one inner Chebyshev step with A·z; at the ``last``
+        step only x + z' (z' where ``x`` is None)."""
+        if not self._fused(z):
+            count("epilogue_plain")
+            return epilogue.cheby_step_plain(self, r, z, d, u, c1, c2, x,
+                                             last)
+        out = torch.empty_like(z)
+        d_out = None if last else torch.empty_like(z)
+        self._matvec_epilogue(z, epilogue.CHEBYSHEV, c1, c2,
+                              b=r.contiguous(), u=u, x=z, d=d.contiguous(),
+                              x2=None if x is None else x.contiguous(),
+                              out=out, out2=d_out)
+        return out if last else (out, d_out)
+
+    def jacobi_step(self, x: torch.Tensor, b: torch.Tensor,
+                    u: torch.Tensor) -> torch.Tensor:
+        """x + u ⊙ (b − A·x)."""
+        if not self._fused(x):
+            count("epilogue_plain")
+            return epilogue.jacobi_step_plain(self, x, b, u)
+        out = torch.empty_like(x)
+        self._matvec_epilogue(x, epilogue.JACOBI, b=b.contiguous(), u=u,
+                              x=x, out=out)
+        return out
+
+    def matvec_add(self, x: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
+        """x + A·e."""
+        if not self._fused(e):
+            count("epilogue_plain")
+            return epilogue.matvec_add_plain(self, x, e)
+        out = torch.empty_like(x)
+        self._matvec_epilogue(e, epilogue.ADD, x=x.contiguous(), out=out)
+        return out
 
     def _rest_rows(self) -> torch.Tensor:
         return torch.repeat_interleave(

@@ -11,7 +11,9 @@ holds them.  The kernel is bound by device-memory bytes,
 
 :func:`dia_spmv` launches the kernel for a CUDA tensor and runs
 :func:`dia_spmv_plain` for a CPU tensor; ``dia_spmv.launches`` counts the
-kernel launches.
+kernel launches.  :func:`dia_spmv_epilogue` launches the same kernel with
+an epilogue (``ops/epilogue.py``; CUDA only), which stores that expression
+of y in place of y; ``dia_spmv_epilogue.launches`` counts its launches.
 """
 
 from __future__ import annotations
@@ -55,6 +57,25 @@ def _check(dia, offsets, x, n_cols):
         raise ValueError(f"dia_spmv: dia on {dia.device}, x on {x.device}")
 
 
+def _launch(dia, offsets, x, n_cols, y, ep) -> None:
+    """The kernel into ``y``, or with the epilogue ``ep`` in place of the
+    store of y."""
+    if x.device.type != "cuda":
+        raise ValueError(f"dia_spmv: unsupported device {x.device}")
+    if not (dia.is_contiguous() and x.is_contiguous()):
+        raise ValueError("dia_spmv: dia and x must be contiguous")
+    offs = (ctypes.c_int32 * len(offsets))(*offsets)
+    fn = (kernels.lib().hdtt_dia_spmv_f32 if x.dtype == torch.float32
+          else kernels.lib().hdtt_dia_spmv_f64)
+    with torch.cuda.device(x.device):   # launch on x's card
+        rc = fn(dia.data_ptr(), ctypes.addressof(offs), len(offsets),
+                x.data_ptr(), None if y is None else y.data_ptr(),
+                dia.shape[1], n_cols,
+                None if ep is None else ctypes.byref(ep),
+                torch.cuda.current_stream(x.device).cuda_stream)
+    kernels.check(rc, "dia_spmv")
+
+
 def dia_spmv(dia: torch.Tensor, offsets: Sequence[int], x: torch.Tensor,
              n_cols: int) -> torch.Tensor:
     """y = A_dia · x; the CUDA kernel on a CUDA tensor, else the plain
@@ -62,22 +83,21 @@ def dia_spmv(dia: torch.Tensor, offsets: Sequence[int], x: torch.Tensor,
     _check(dia, offsets, x, n_cols)
     if x.device.type == "cpu":
         return dia_spmv_plain(dia, offsets, x, n_cols)
-    if x.device.type != "cuda":
-        raise ValueError(f"dia_spmv: unsupported device {x.device}")
-    if not (dia.is_contiguous() and x.is_contiguous()):
-        raise ValueError("dia_spmv: dia and x must be contiguous")
-    n_rows = dia.shape[1]
-    y = torch.empty(n_rows, dtype=x.dtype, device=x.device)
-    offs = (ctypes.c_int32 * len(offsets))(*offsets)
-    fn = (kernels.lib().hdtt_dia_spmv_f32 if x.dtype == torch.float32
-          else kernels.lib().hdtt_dia_spmv_f64)
-    with torch.cuda.device(x.device):   # launch on x's card
-        rc = fn(dia.data_ptr(), ctypes.addressof(offs), len(offsets),
-                x.data_ptr(), y.data_ptr(), n_rows, n_cols,
-                torch.cuda.current_stream(x.device).cuda_stream)
-    kernels.check(rc, "dia_spmv")
+    y = torch.empty(dia.shape[1], dtype=x.dtype, device=x.device)
+    _launch(dia, offsets, x, n_cols, y, None)
     dia_spmv.launches += 1
     return y
 
 
+def dia_spmv_epilogue(dia: torch.Tensor, offsets: Sequence[int],
+                      x: torch.Tensor, n_cols: int, ep) -> None:
+    """The CUDA kernel storing the epilogue ``ep`` (an
+    ``epilogue.EpilogueArgs`` over vectors on x's card) of A_dia · x in
+    place of y."""
+    _check(dia, offsets, x, n_cols)
+    _launch(dia, offsets, x, n_cols, None, ep)
+    dia_spmv_epilogue.launches += 1
+
+
 dia_spmv.launches = 0
+dia_spmv_epilogue.launches = 0

@@ -4,7 +4,8 @@ The kernels have a plain C interface.  On first use ``nvcc`` compiles
 every ``csrc/*.cu`` for Hopper (``sm_90a``), one process per source, all
 started together, and links them into one shared library under
 ``build/hypredrive_tpu_torch/cuda-<hash>/``, keyed by a hash of the
-sources and flags; ``ctypes`` loads it.  Nothing here runs at import
+sources, the headers they include (``csrc/*.cuh``) and the flags;
+``ctypes`` loads it.  Nothing here runs at import
 time: a machine without ``nvcc`` or a card can import every module.
 """
 
@@ -54,7 +55,7 @@ def build() -> str:
     """Compile the kernels if the build dir lacks them; the library path."""
     srcs = _sources()
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in srcs:
+    for p in srcs + sorted(glob.glob(os.path.join(_CSRC, "*.cuh"))):
         h.update(os.path.basename(p).encode())
         h.update(" ".join(SOURCE_FLAGS.get(os.path.basename(p), ())).encode())
         with open(p, "rb") as f:
@@ -106,10 +107,10 @@ def lib() -> ctypes.CDLL:
             for suffix in ("f32", "f64"):
                 fn = getattr(cdll, f"hdtt_dia_spmv_{suffix}")
                 fn.restype = ctypes.c_int
-                fn.argtypes = [vp, vp, i32, vp, vp, i64, i64, vp]
+                fn.argtypes = [vp, vp, i32, vp, vp, i64, i64, vp, vp]
                 fn = getattr(cdll, f"hdtt_csr_spmv_{suffix}")
                 fn.restype = ctypes.c_int
-                fn.argtypes = [vp, vp, vp, vp, vp, i64, vp, i64, i32, vp]
+                fn.argtypes = [vp, vp, vp, vp, vp, i64, vp, i64, i32, vp, vp]
                 fn = getattr(cdll, f"hdtt_givens_update_{suffix}")
                 fn.restype = ctypes.c_int
                 fn.argtypes = [vp, vp, vp, vp, vp, i32, i32, vp, vp, vp, vp,

@@ -48,6 +48,7 @@ import scipy.sparse as sp
 import torch
 
 from ..core.trace import count, span
+from ..ops import epilogue
 from ..ops.csr import row_partition
 from ..ops.device_matrix import EllMatrix, _select_diagonals
 from .halo import RankExchange, build_halo_plan, rank_exchange
@@ -274,6 +275,13 @@ class DistEllMatrix:
         x_ext = self.extend(x)
         return torch.cat([E.matvec(x_ext[s])
                           for s, E in enumerate(self.shards)])
+
+    # the cycles' steps (ops/epilogue.py): the torch chains around matvec,
+    # uncounted; no kernel epilogue spans the halo exchange
+    residual = epilogue.residual_plain
+    cheby_step = epilogue.cheby_step_plain
+    jacobi_step = epilogue.jacobi_step_plain
+    matvec_add = epilogue.matvec_add_plain
 
     def diagonal(self) -> torch.Tensor:
         """This rank's block of diag(A) of a square matrix (shard s's row r

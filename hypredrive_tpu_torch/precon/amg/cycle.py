@@ -3,7 +3,10 @@
 Counterpart of ``hypredrive_tpu/precon/amg/cycle.py``.  Eager torch: each
 smoother step is a matvec (DIA + CSR kernels, or ``torch.mv`` on the dense
 coarse levels) and a few vector ops; grid transfers are the same matvec,
-and the coarsest solve is a dense matvec with the uploaded inverse.  On a
+and the coarsest solve is a dense matvec with the uploaded inverse.  The
+residuals, the Chebyshev and (ℓ1-)Jacobi steps and the coarse correction
+are the level operator's step methods (``ops/epilogue.py``): on a card,
+on an ``EllMatrix``, the vector ops run inside the matvec's last kernel.  On a
 row-shard mesh the same code runs on ``DistEllMatrix`` levels and the
 rank's blocks of padded global vectors (the padded coarsest inverse keeps
 pad entries zero); the coarsest solve gathers the coarse residual from
@@ -15,6 +18,7 @@ from __future__ import annotations
 
 import torch
 
+from ..chebyshev import cheby_steps
 from .hierarchy import GS_TRI_ITERS, AMGLevel, AMGState
 
 
@@ -45,7 +49,7 @@ def _smooth(level: AMGLevel, x, b, sweeps: int, phase: str = "pre",
         # b − A·x, with A·0 elided on the first sweep of a zero guess
         if first and zero_guess:
             return b
-        return b - A.matvec(x)
+        return A.residual(b, x)
 
     kind = level.smoother
     arrays = level.smooth_arrays
@@ -98,20 +102,16 @@ def _smooth(level: AMGLevel, x, b, sweeps: int, phase: str = "pre",
         d_inv, theta, delta, rhos = arrays
         for i in range(sweeps):
             # Chebyshev on the residual equation A e = r, x += e
-            r = resid(x, i == 0)
-            z = d_inv * r / theta
-            d = z
-            rho_prev = rhos[0]
-            for k in range(1, len(rhos)):
-                rk = d_inv * (r - A.matvec(z))
-                d = rhos[k] * rho_prev * d + (2.0 * rhos[k] / delta) * rk
-                z = z + d
-                rho_prev = rhos[k]
-            x = x + z
+            if i == 0 and zero_guess:
+                r, z = b, d_inv * b / theta
+            else:
+                r, z = A.residual(b, x, d_inv, theta)
+            x = cheby_steps(A, d_inv, delta, rhos, r, z, x)
         return x
     (d_inv,) = arrays   # jacobi, l1-jacobi
     for i in range(sweeps):
-        x = x + d_inv * resid(x, i == 0)
+        x = (x + d_inv * b if i == 0 and zero_guess
+             else A.jacobi_step(x, b, d_inv))
     return x
 
 
@@ -127,14 +127,14 @@ def _cycle(state: AMGState, lvl: int, b):
 
     x = torch.zeros_like(b)
     x = _smooth(level, x, b, level.pre_sweeps, phase="pre", zero_guess=True)
-    r = b - level.A.matvec(x)
+    r = level.A.residual(b, x)
     rc = level.R.matvec(r)
     ec = _cycle(state, lvl + 1, rc)
     if state.cycle_type == 1 and lvl + 1 < len(levels) - 1:
         # W-cycle: second coarse visit
-        rc2 = rc - levels[lvl + 1].A.matvec(ec)
+        rc2 = levels[lvl + 1].A.residual(rc, ec)
         ec = ec + _cycle(state, lvl + 1, rc2)
-    x = x + level.P.matvec(ec)
+    x = level.P.matvec_add(x, ec)
     x = _smooth(level, x, b, level.post_sweeps, phase="post")
     return x
 
@@ -143,6 +143,6 @@ def amg_apply(state: AMGState, r):
     """z ≈ A⁻¹ r: max_iter cycles (preconditioner default 1)."""
     z = _cycle(state, 0, r)
     for _ in range(state.max_iter - 1):
-        resid = r - state.levels[0].A.matvec(z)
+        resid = state.levels[0].A.residual(r, z)
         z = z + _cycle(state, 0, resid)
     return z

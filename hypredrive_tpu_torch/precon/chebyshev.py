@@ -6,7 +6,9 @@ estimate), scale (diagonal scaling), fraction (lower end of the target
 interval = fraction·λmax).  ``cheby_coefficients`` is host numpy with the
 JAX package's arithmetic; the apply is ``order`` matvec + axpy steps on the
 device.  The state is (A, d_inv, θ, δ, ρ_k) with the scalars as Python
-floats, as the AMG smoother keeps them.
+floats, as the AMG smoother keeps them.  :func:`cheby_steps` is the
+recurrence both run; each step is the operator's ``cheby_step``
+(``ops/epilogue.py``), on a card inside the matvec's last kernel.
 """
 
 from __future__ import annotations
@@ -48,19 +50,26 @@ def cheby_coefficients(lam_max: float, fraction: float, order: int):
     return theta, delta, rhos
 
 
-def cheby_apply(state, r):
-    """z ≈ A⁻¹ r by ``order`` Chebyshev steps on D⁻¹A (z₀ = 0)."""
-    A, d_inv, theta, delta, rhos = state
-    z = d_inv * r / theta
+def cheby_steps(A, d_inv, delta, rhos, r, z, x=None):
+    """The Chebyshev recurrence on D⁻¹A for A e = r from its first iterate
+    z = D⁻¹ r / θ: e after ``len(rhos)`` terms, or x + e where ``x`` is
+    given (a smoothing sweep)."""
     d = z
     rho_prev = rhos[0]
     for k in range(1, len(rhos)):
         rho = rhos[k]
-        resid = d_inv * (r - A.matvec(z))
-        d = rho * rho_prev * d + (2.0 * rho / delta) * resid
-        z = z + d
+        c1, c2 = rho * rho_prev, 2.0 * rho / delta
+        if k == len(rhos) - 1:
+            return A.cheby_step(r, z, d, d_inv, c1, c2, x, last=True)
+        z, d = A.cheby_step(r, z, d, d_inv, c1, c2)
         rho_prev = rho
-    return z
+    return z if x is None else x + z
+
+
+def cheby_apply(state, r):
+    """z ≈ A⁻¹ r by ``order`` Chebyshev steps on D⁻¹A (z₀ = 0)."""
+    A, d_inv, theta, delta, rhos = state
+    return cheby_steps(A, d_inv, delta, rhos, r, d_inv * r / theta)
 
 
 def make_cheby_state(A, order: int, fraction: float, eig_iters: int = 10,

@@ -13,7 +13,9 @@ F-relaxation, global relaxation and coarsest solver are components
 Apply runs on the device: every level's A, P and R is an
 :class:`~hypredrive_tpu_torch.ops.device_matrix.EllMatrix` (the DIA and CSR
 kernels), the F-point gather/scatter is ``index_select``/``index_add`` with
-int64 F indices on the device.  Each level's host construction (F/C
+int64 F indices on the device.  The residuals, the masked Jacobi sweep and
+the coarse correction are the level operator's step methods
+(``ops/epilogue.py``; on a card, inside the matvec's last kernel).  Each level's host construction (F/C
 split to coarse product) is one entry of the span ``hierarchy_host``
 (``core/trace.py``).
 
@@ -80,17 +82,17 @@ def _f_relax(level: MGRLevel, x, b):
     if level.f_kind == "masked-jacobi":
         (mdinv,) = level.f_state
         for _ in range(level.f_sweeps):
-            x = x + mdinv * (b - level.A.matvec(x))
+            x = level.A.jacobi_step(x, b, mdinv)
         return x
     if level.f_kind in ("masked-amg", "masked-ilu"):
         fmask, sub_state = level.f_state
         kind = level.f_kind.split("-", 1)[1]
         for _ in range(level.f_sweeps):
-            r = b - level.A.matvec(x)
+            r = level.A.residual(b, x)
             x = x + fmask * apply_component(kind, sub_state, fmask * r)
         return x
     for _ in range(level.f_sweeps):
-        r = b - level.A.matvec(x)
+        r = level.A.residual(b, x)
         ef = apply_component(level.f_kind, level.f_state,
                              r.index_select(0, level.f_idx))
         x = x.index_add(0, level.f_idx, ef)
@@ -98,7 +100,7 @@ def _f_relax(level: MGRLevel, x, b):
 
 
 def _g_relax(level: MGRLevel, x, b):
-    r = b - level.A.matvec(x)
+    r = level.A.residual(b, x)
     return x + apply_component(level.g_kind, level.g_state, r)
 
 
@@ -117,14 +119,14 @@ def _mgr_cycle(state: MGRState, lvl: int, b):
             x = _g_relax(level, x, b)
         if level.f_kind != "none":
             x = _f_relax(level, x, b)
-    r = b - level.A.matvec(x)
+    r = level.A.residual(b, x)
     rc = level.R.matvec(r)
     ec = _mgr_cycle(state, lvl + 1, rc)
     if state.cycle_type == 2 and lvl + 1 < len(levels):
         # W-cycle second visit
-        rc2 = rc - levels[lvl + 1].A.matvec(ec)
+        rc2 = levels[lvl + 1].A.residual(rc, ec)
         ec = ec + _mgr_cycle(state, lvl + 1, rc2)
-    x = x + level.P.matvec(ec)
+    x = level.P.matvec_add(x, ec)
     if level.post:
         if level.f_kind != "none":
             x = _f_relax(level, x, b)
@@ -136,7 +138,7 @@ def _mgr_cycle(state: MGRState, lvl: int, b):
 def mgr_apply(state: MGRState, r):
     z = _mgr_cycle(state, 0, r)
     for _ in range(state.max_iter - 1):
-        resid = r - state.levels[0].A.matvec(z)
+        resid = state.levels[0].A.residual(r, z)
         z = z + _mgr_cycle(state, 0, resid)
     return z
 

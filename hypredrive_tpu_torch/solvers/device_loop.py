@@ -43,7 +43,7 @@ The kernel wrappers' launch counters (:func:`counted`) tick where a
 kernel is launched eagerly.  A capture records each graph's launches and
 restores the counters; every replay of an active body adds them, so the
 counts mean what the eager loop's meant.  Warm-up launches and masked
-replays are not counted.  The halo counters of the registry
+replays are not counted.  The halo and epilogue counters of the registry
 (:data:`REPLAYED`) are recorded and added the same way.  :data:`stats`
 (the registry of ``core/trace.py``) counts the replays, masked replays,
 host reads, captures, graph nodes and the nodes replayed; the spans
@@ -77,16 +77,17 @@ _dead: List[tuple] = []
 _capture_stream: Optional[torch.cuda.Stream] = None
 
 # the registry's counters that a captured body adds to on every replay
-REPLAYED = ("halo_bytes", "halo_msgs")
+REPLAYED = ("halo_bytes", "halo_msgs", "epilogue_fused", "epilogue_plain")
 
 
 def counted():
     """The kernel wrappers whose ``launches`` count kernel launches."""
-    from ..ops.csr_spmv import csr_spmv
-    from ..ops.dia_spmv import dia_spmv
+    from ..ops.csr_spmv import csr_spmv, csr_spmv_epilogue
+    from ..ops.dia_spmv import dia_spmv, dia_spmv_epilogue
     from ..ops.krylov_small import givens_update, hessenberg_backsolve
 
-    return (dia_spmv, csr_spmv, givens_update, hessenberg_backsolve)
+    return (dia_spmv, csr_spmv, givens_update, hessenberg_backsolve,
+            dia_spmv_epilogue, csr_spmv_epilogue)
 
 
 def _counts():
@@ -110,9 +111,9 @@ def _add_counts(delta, sign=1):
 
 @contextlib.contextmanager
 def uncounted():
-    """Launches and halo sends inside do not count: a timing loop or a
-    comparison with a plain version, not the work of a solve (every count
-    ends as it began)."""
+    """Launches, halo sends and epilogue steps inside do not count: a
+    timing loop or a comparison with a plain version, not the work of a
+    solve (every count ends as it began)."""
     saved = _counts()
     try:
         yield

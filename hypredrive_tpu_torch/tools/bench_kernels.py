@@ -28,8 +28,14 @@ One launch of each kernel per row counts on the kernels' launch counters
 none.  ``spmv_row``, the measurement of one SpMV row, is also what
 ``chip_smoke.py``'s kernel checks use.
 
+The ``epilogue`` rows time each of the cycles' fused steps
+(``ops/epilogue.py``: the residual with the Chebyshev start, the last
+Chebyshev step, the Jacobi step on A0 and A1, the correction x + P·e on P0
+and P1) against the torch chain it replaces, over the same operand copies,
+and say whether the two agree bit for bit.
+
 Usage: BK_NX=64 python -m hypredrive_tpu_torch.tools.bench_kernels
-           [--exec-policy host]
+           [--dtype float64] [--exec-policy host]
 """
 
 from __future__ import annotations
@@ -183,6 +189,10 @@ class Bench:
                f"  library {row['library_ms']:.4f} ms")
         err = ("" if row.get("rel_err") is None
                else f"  rel {row['rel_err']:.2e}")
+        if "plain_ms" in row:
+            err = (f"  plain {row['plain_ms'] * 1e3:9.2f} us "
+                   f"{'bit-equal' if row['bit_equal'] else 'DIFFERS'}, "
+                   "fused")
         rate = (f"  {row['gnnz_s']:7.2f} Gnnz/s" if "gnnz_s" in row
                 else f"  {row['gb_s']:7.1f} GB/s")
         print(f"{row['name']:9s} {row['shape']:30s}{err}  "
@@ -272,6 +282,60 @@ class Bench:
                                   E.indptr.cpu().numpy()), shape=E.shape)
             out.append(self.spmv("csr_spmv",
                                  f"{label} nnz={E.data.numel()}", E, part))
+        return out
+
+    def epilogues(self, label, E, P):
+        """Each fused step on level operator E (the correction on its
+        prolongation P) against its torch chain: device ms of both, the
+        bound of the fused step (the least bytes: the matrix part, each
+        vector read or written once) and whether the two agree bit for
+        bit."""
+        import torch
+
+        from ..ops import epilogue as ep
+
+        def vec(k):
+            return torch.as_tensor(self.rng.standard_normal(k),
+                                   dtype=self.dtype, device=self.dev)
+
+        w = self.dtype.itemsize
+        theta, c1, c2 = 1.7, 0.61, 0.93
+        steps = (   # name, operator, vectors read or written, fused, plain
+            ("residual_z0", E, 4,
+             lambda M, v: M.residual(v[0], v[1], v[2].abs(), theta),
+             lambda M, v: ep.residual_plain(M, v[0], v[1], v[2].abs(),
+                                            theta)),
+            ("cheby_last", E, 4,
+             lambda M, v: M.cheby_step(v[0], v[1], v[1], v[2], c1, c2,
+                                       v[3], True),
+             lambda M, v: ep.cheby_step_plain(M, v[0], v[1], v[1], v[2],
+                                              c1, c2, v[3], True)),
+            ("jacobi", E, 3,
+             lambda M, v: M.jacobi_step(v[1], v[0], v[2]),
+             lambda M, v: ep.jacobi_step_plain(M, v[1], v[0], v[2])),
+            ("add", P, 2,
+             lambda M, v: M.matvec_add(v[0], v[4]),
+             lambda M, v: ep.matvec_add_plain(M, v[0], v[4])))
+        out = []
+        for name, M, n_vec, fused, plain in steps:
+            nr, nc = M.shape
+            matrix = sum(t.numel() * t.element_size() for t in (
+                M.dia_data, M.data, M.indices, M.indptr) if t is not None)
+            nbytes = matrix + nc * w + n_vec * nr * w
+            mats = [M] + [copy.deepcopy(M)
+                          for _ in range(self.copies(nbytes) - 1)]
+            vecs = [[vec(nr) for _ in range(4)] + [vec(nc)] for _ in mats]
+            a, b = fused(mats[0], vecs[0]), plain(mats[0], vecs[0])
+            a, b = (a if isinstance(a, tuple) else (a,),
+                    b if isinstance(b, tuple) else (b,))
+            equal = all(torch.equal(x, y) for x, y in zip(a, b))
+            ms = {k: self.ms([lambda M=M, v=v, f=f: f(M, v)
+                              for M, v in zip(mats, vecs)])
+                  for k, f in (("fused", fused), ("plain", plain))}
+            out.append(self._row(
+                "epilogue", f"{label} {name} n={nr}", ms["fused"], nbytes,
+                plain_ms=ms["plain"], bit_equal=equal,
+                gb_s=nbytes / (ms["fused"] * 1e-3) / 1e9))
         return out
 
     def vcycle(self, state, A_host):
@@ -380,6 +444,9 @@ def run(nx=64, dtype="float32", policy="device"):
         whole = EllMatrix.from_split(
             C.shape, C.nnz, ((), None, C.row, C.col, C.data), dt, dev)
         bench.matrix(f"A{i} {C.shape[0]}x{C.shape[1]}", whole, C.tocsr())
+    for i, lv in enumerate(state.levels[:2]):
+        if lv.P is not None:
+            bench.epilogues(f"A{i}/P{i}", lv.A, lv.P)
     bench.vcycle(state, A_host)
     out["rows"] = bench.rows
     return out
@@ -387,9 +454,11 @@ def run(nx=64, dtype="float32", policy="device"):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--dtype", choices=("float32", "float64"),
+                    default="float32")
     add_exec_policy(ap)
     args = ap.parse_args(argv)
-    out = run(int(os.environ.get("BK_NX", "64")), "float32",
+    out = run(int(os.environ.get("BK_NX", "64")), args.dtype,
               args.exec_policy)
     return 0 if out["probe"]["launch_ok"] else 1
 

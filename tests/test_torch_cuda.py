@@ -689,3 +689,176 @@ def test_kernels_launch_on_their_tensors_card(dtype):
     for key in ("H", "cs", "sn", "g", "y"):
         assert torch.equal(state[d1][key].cpu(), state["cpu"][key]), key
     assert torch.cuda.current_device() == 0
+
+
+def _epilogue_layout(name, rng):
+    """Square (and two rectangular) host matrices whose device form has
+    the named parts; ``mixed`` leaves about half the rows with no entry
+    in the CSR remainder, ``csr_empty_rows`` half the rows empty."""
+    n = 13824
+    if name == "dia":
+        return laplacian_3d_7pt(24)
+    if name == "mixed":
+        return sp.csr_matrix(laplacian_3d_7pt(24) + sp.random(
+            n, n, density=5e-5, random_state=rng, format="csr"))
+    if name == "csr":
+        return _csr_case("square", rng)
+    if name == "csr_empty_rows":
+        return _lengths_csr(np.where(rng.random(6000) < 0.5, 0,
+                                     rng.integers(1, 40, 6000)), 6000, rng)
+    if name == "csr_long_rows":
+        lengths = np.ones(3000, np.int64)
+        lengths[[5, 1700]] = (3 * TILE_NNZ + 11, 2 * TILE_NNZ)
+        return _lengths_csr(lengths, 3000, rng)
+    if name == "rect_mixed":      # a prolongation's shape: DIA and CSR
+        return sp.csr_matrix(sp.eye(6000, 2000) + sp.random(
+            6000, 2000, density=2e-3, random_state=rng, format="csr"))
+    return _csr_case("tall", rng)   # rect_csr
+
+
+EPILOGUE_LAYOUTS = ("dia", "mixed", "csr", "csr_empty_rows",
+                    "csr_long_rows", "rect_mixed", "rect_csr")
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("layout", EPILOGUE_LAYOUTS)
+def test_epilogues_equal_the_torch_chain(dev, dtype, layout):
+    """Each epilogue (the residual with and without the Chebyshev start,
+    the Chebyshev step at a middle and at the last step, with and without
+    x, the Jacobi step, the correction x + A·e) against the torch chain
+    it replaces, on the same card: bit for bit, every row."""
+    from hypredrive_tpu_torch.ops import epilogue as ep
+    from hypredrive_tpu_torch.solvers import device_loop as dl
+
+    rng = np.random.default_rng(9)
+    A = _epilogue_layout(layout, rng)
+    E = EllMatrix.from_csr(A, dtype=dtype, device=dev)
+    assert (E.dia_data is not None) == (layout in ("dia", "mixed",
+                                                   "rect_mixed"))
+    assert (E.data is not None) == (layout != "dia")
+    m, n = A.shape
+
+    def vec(k):
+        return torch.tensor(rng.standard_normal(k), dtype=dtype,
+                            device=dev)
+
+    x, e = vec(m), vec(n)
+    pairs = {"add": (lambda: E.matvec_add(x, e),
+                     lambda: ep.matvec_add_plain(E, x, e))}
+    if m == n:
+        b, u, z, d = vec(m), vec(m).abs(), vec(m), vec(m)
+        theta, c1, c2 = 1.7, 0.61, 0.93
+        r = ep.residual_plain(E, b, x)
+        pairs.update({
+            "residual": (lambda: E.residual(b, x),
+                         lambda: ep.residual_plain(E, b, x)),
+            "residual_z0": (lambda: E.residual(b, x, u, theta),
+                            lambda: ep.residual_plain(E, b, x, u, theta)),
+            "cheby_middle": (lambda: E.cheby_step(r, z, d, u, c1, c2),
+                             lambda: ep.cheby_step_plain(E, r, z, d, u,
+                                                         c1, c2)),
+            "cheby_last_x": (lambda: E.cheby_step(r, z, d, u, c1, c2, x,
+                                                  True),
+                             lambda: ep.cheby_step_plain(E, r, z, d, u,
+                                                         c1, c2, x, True)),
+            "cheby_last": (lambda: E.cheby_step(r, z, z, u, c1, c2,
+                                                last=True),
+                           lambda: ep.cheby_step_plain(E, r, z, z, u, c1,
+                                                       c2, last=True)),
+            "jacobi": (lambda: E.jacobi_step(x, b, u),
+                       lambda: ep.jacobi_step_plain(E, x, b, u))})
+    from hypredrive_tpu_torch.ops.csr_spmv import csr_spmv_epilogue
+    from hypredrive_tpu_torch.ops.dia_spmv import dia_spmv_epilogue
+
+    dl.reset_stats()
+    n0 = dia_spmv_epilogue.launches + csr_spmv_epilogue.launches
+    for name, (fused, plain) in pairs.items():
+        got, want = fused(), plain()
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        torch.cuda.synchronize()
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and g.shape == w.shape, name
+            bad = int((g != w).sum())
+            assert bad == 0 and torch.equal(g, w), (name, bad)
+    assert dl.stats["epilogue_fused"] == len(pairs)
+    assert dl.stats["epilogue_plain"] == 0
+    # one launch with the epilogue a step, on its own launch counter
+    assert (dia_spmv_epilogue.launches + csr_spmv_epilogue.launches
+            - n0) == len(pairs)
+
+
+def _unfused(monkeypatch):
+    """The cycles' steps as torch chains on the card: every ``EllMatrix``
+    step method takes its plain branch."""
+    monkeypatch.setattr(EllMatrix, "_fused", lambda self, x: False)
+
+
+@pytest.mark.parametrize("relax", ["chebyshev", "l1-jacobi"])
+def test_amg_apply_fused_equals_unfused(dev, monkeypatch, relax):
+    """One AMG apply on the 32³ Laplacian with the epilogues and with the
+    torch chains, on the card: bit-identical."""
+    from hypredrive_tpu_torch.config.sections import AMG_SCHEMA
+    from hypredrive_tpu_torch.precon.amg.cycle import amg_apply
+    from hypredrive_tpu_torch.precon.amg.hierarchy import setup_hierarchy
+    from hypredrive_tpu_torch.solvers import device_loop as dl
+
+    args = AMG_SCHEMA.defaults()
+    if relax != "chebyshev":
+        args["relaxation"]["down_type"] = args["relaxation"]["up_type"] = 18
+    A = laplacian_3d_7pt(32)
+    st = setup_hierarchy(A, args, dtype=torch.float64, device=dev)
+    assert st.levels[0].smoother == relax
+    r = torch.tensor(np.random.default_rng(7).standard_normal(A.shape[0]),
+                     device=dev)
+    dl.reset_stats()
+    z = amg_apply(st, r)
+    fused = dl.stats["epilogue_fused"]
+    assert fused > 0
+    _unfused(monkeypatch)
+    z_plain = amg_apply(st, r)
+    assert torch.equal(z, z_plain)
+
+
+def test_mgr_apply_fused_equals_unfused(dev, monkeypatch):
+    """ex3's MGR on a 16³ three-field system, with the epilogues and with
+    the torch chains, on the card: bit-identical."""
+    from hypredrive_tpu_torch.config.sections import MGR_SCHEMA
+    from hypredrive_tpu_torch.ops.csr import multiphysics_fv_system
+    from hypredrive_tpu_torch.precon.mgr import mgr_apply, setup_mgr
+    from hypredrive_tpu_torch.solvers import device_loop as dl
+
+    A, dofmap = multiphysics_fv_system(16, 3, contrast=0.3, coupling=0.12,
+                                       convection=0.08)
+    args = MGR_SCHEMA.parse(dict(EX3_MGR), "mgr", [])
+    st = setup_mgr(A, args, dofmap, torch.float64, device=dev)
+    r = torch.tensor(np.random.default_rng(8).standard_normal(A.shape[0]),
+                     device=dev)
+    dl.reset_stats()
+    z = mgr_apply(st, r)
+    assert dl.stats["epilogue_fused"] > 0
+    _unfused(monkeypatch)
+    assert torch.equal(z, mgr_apply(st, r))
+
+
+def test_epilogue_counts_under_replay_equal_eager(dev):
+    """``epilogue_fused`` and ``epilogue_plain`` under graph replay equal
+    the eager run's: PCG with the default AMG on 24³, eager, then graph
+    (captured), then graph (cached); the solutions bit-identical."""
+    from hypredrive_tpu_torch.solvers import device_loop as dl
+
+    mv, pc, b = _graph_problem(dev, "lap24_amg")
+    runs = []
+    for eager in (True, False, False):
+        dl.reset_stats()
+        with (dl.eager() if eager else contextlib.nullcontext()):
+            out = pcg_core(mv, pc, b, torch.zeros_like(b), 1e-9, 0.0, 100,
+                           True, 3)
+        torch.cuda.synchronize()
+        runs.append((int(out[1]), dl.stats["epilogue_fused"],
+                     dl.stats["epilogue_plain"], out[0]))
+    assert [r[:3] for r in runs[1:]] == [runs[0][:3]] * 2, runs
+    assert runs[0][1] > 0
+    assert torch.equal(runs[0][3], runs[1][3])
+    assert torch.equal(runs[1][3], runs[2][3])
