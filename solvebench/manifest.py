@@ -11,7 +11,8 @@ manifest entries, with no edit here:
   ``mix.py`` against what the harness drives;
 - the system a configuration solves: ``solvebench/problems/<kind>.py``
   for its ``problem`` section's ``kind``, whose ``build(**arguments)``
-  makes it;
+  makes it, and, for a mix that brings a new system on every solve, whose
+  ``sequence(count, **arguments)`` makes that many on one pattern;
 - a metric: ``solvebench/metrics/<metric>.py``, whose ``read(ctx)``
   returns the metric's value or None.
 """
@@ -81,4 +82,13 @@ class Manifest:
         its ``kind`` names the file, the other keys are the arguments."""
         args = {k: v for k, v in problem.items() if k != "kind"}
         return self._module("problems", problem["kind"]).build(**args)
+
+    def sequence(self, problem: dict, count: int
+                 ) -> Tuple[List[object], Optional[object]]:
+        """([A_0, …, A_{count−1}], dofmap or None) of a configuration whose
+        ``problem`` kind gives a sequence of systems on one pattern: its
+        file's ``sequence(count, **arguments)``."""
+        args = {k: v for k, v in problem.items() if k != "kind"}
+        return self._module("problems", problem["kind"]).sequence(count,
+                                                                  **args)
 

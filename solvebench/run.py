@@ -3,13 +3,14 @@
     python3 -m solvebench.run --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
 Loads the cell's configuration and traffic mix by name, makes the system
-and the right-hand sides from the seed, sets up, warms up, measures for
-``--seconds``, checks the window's answers against the plain reference
-and prints one JSON object.  ``--trace 1`` adds a profiled stretch after
-the window and reports the per-layer metrics in place of the end-to-end
-ones.  Without as many CUDA cards as the cell asks for it exits 2 and
-prints no result; a cell, configuration or mix the harness cannot drive
-as written exits 1 and prints none.
+(or a Newton sequence's systems, ``sequence.py``) and the right-hand
+sides from the seed, sets up, warms up, measures for ``--seconds``,
+checks the window's answers against the plain reference and prints one
+JSON object.  ``--trace 1`` adds a profiled stretch after the window and
+reports the per-layer metrics in place of the end-to-end ones.  Without
+as many CUDA cards as the cell asks for it exits 2 and prints no result;
+a cell, configuration or mix the harness cannot drive as written exits 1
+and prints none.
 """
 
 from __future__ import annotations
@@ -97,20 +98,25 @@ def run_cell(man, cell, cfg, mix, args, card) -> dict:
     import torch
 
     from .measure import measure
-    from .mix import right_hand_sides
+    from .mix import is_sequence, right_hand_sides
     from .session import LibrarySession
 
     device = torch.device("cuda", 0) if card else torch.device("cpu")
     if card:
         torch.cuda.set_device(device)
-    A, dofmap = man.system(cfg["problem"])
-    rhs = right_hand_sides(mix, A.shape[0], args.seed)
     readers = ({m["name"]: man.reader(m["name"])
                 for m in man.metrics("per_layer", cell["name"])}
                if args.trace else None)
-    session = LibrarySession(cfg, A, dofmap, device, cfg["dtype"])
-    out = measure(session, A, rhs, cfg, mix, args.seed, args.seconds,
-                  bool(args.trace), device, readers=readers)
+    if is_sequence(mix):
+        from .sequence import run_sequence
+
+        out = run_sequence(man, cfg, mix, args, device, readers)
+    else:
+        A, dofmap = man.system(cfg["problem"])
+        rhs = right_hand_sides(mix, A.shape[0], args.seed)
+        session = LibrarySession(cfg, A, dofmap, device, cfg["dtype"])
+        out = measure(session, A, rhs, cfg, mix, args.seed, args.seconds,
+                      bool(args.trace), device, readers=readers)
     out["setup_s"] = out["window_open"] - lifecycle.process_start()
     return out
 

@@ -5,7 +5,9 @@ start (a ``sitecustomize`` on ``PYTHONPATH``):
 
 - the solve returns its state unchanged (x0);
 - the answer is altered where it is produced (one entry of x);
-- half of the answer is left out (the second half of x zero).
+- half of the answer is left out (the second half of x zero);
+- in the Newton sequence, the program keeps the previous system's matrix
+  (each new set of values handed to it is the one before).
 
 A cell on one card has no exchange between chips to leave out.
 """
@@ -16,7 +18,7 @@ from solvebench.manifest import ROOT
 from solvebench.tests import tiny
 
 UNCHANGED = """
-from hypredrive_tpu_torch.solvers import gmres, pcg
+from hypredrive_tpu_torch.solvers import fgmres, gmres, pcg
 
 def unchanged(core):
     def solve_core(self, A, b, x0):
@@ -24,7 +26,7 @@ def unchanged(core):
         return (x0.clone(),) + tuple(out[1:])
     return solve_core
 
-for cls in (pcg.PCGSolver, gmres.GMRESSolver):
+for cls in (pcg.PCGSolver, gmres.GMRESSolver, fgmres.FGMRESSolver):
     cls.solve_core = unchanged(cls.solve_core)
 """
 
@@ -52,8 +54,22 @@ def get_solution(self):
 LinearSystem.get_solution = get_solution
 """
 
+STALE = """
+from hypredrive_tpu_torch.api import HypreDrive
+set_matrix = HypreDrive.set_matrix_from_csr
+last = []
+
+def set_matrix_from_csr(self, indptr, indices, data, *args, **kwargs):
+    last.append(data.copy())
+    return set_matrix(self, indptr, indices, last[max(0, len(last) - 2)],
+                      *args, **kwargs)
+
+HypreDrive.set_matrix_from_csr = set_matrix_from_csr
+"""
+
 CELLS = {"poisson": "poisson128_pcg_amg.steady_rhs",
-         "multiphys": "multiphys64_gmres_mgr.steady_rhs"}
+         "multiphys": "multiphys64_gmres_mgr.steady_rhs",
+         "newton": "multiphys64_fgmres_mgr.newton_seq"}
 
 
 def run_with(tmp_path, fault: str, cell: str) -> dict:
@@ -80,6 +96,21 @@ def test_a_broken_solve_is_not_correct(tmp_path, fault, cell):
         line["checks"]["residual"]["limit"]
 
 
+def test_a_stale_matrix_is_not_correct(tmp_path):
+    """Each system solved with the values of the one before: the reference
+    judges every solution against its own system, so the run is not
+    correct, though every solve converges."""
+    line = run_with(tmp_path, STALE, CELLS["newton"])
+    assert line["correct"] is False and line["failed"] == 0
+    assert line["checks"]["residual"]["value"] > \
+        line["checks"]["residual"]["limit"]
+
+
 def test_the_sound_program_is_correct(tmp_path):
     line = run_with(tmp_path, "", CELLS["poisson"])
     assert line["correct"] is True
+
+
+def test_the_sound_sequence_is_correct(tmp_path):
+    line = run_with(tmp_path, "", CELLS["newton"])
+    assert line["correct"] is True and line["failed"] == 0

@@ -26,7 +26,8 @@ sys.exit(rc)
 def test_a_run_loads_no_jax(tmp_path):
     root = tiny.make_root(tmp_path)
     for cell in ("poisson128_pcg_amg.steady_rhs",
-                 "multiphys64_gmres_mgr.steady_rhs"):
+                 "multiphys64_gmres_mgr.steady_rhs",
+                 "multiphys64_fgmres_mgr.newton_seq"):
         p = subprocess.run([sys.executable, "-c", PROBE, "--root", root,
                             "--workload", cell, "--seed", "3", "--seconds",
                             "0.5", "--trace", "1"], cwd=ROOT,
@@ -41,7 +42,7 @@ def test_a_run_loads_no_jax(tmp_path):
 def test_the_reference_loads_nothing_of_the_port():
     code = ("import sys, solvebench.reference, solvebench.mix; "
             "from solvebench.problems import laplacian_3d_7pt, "
-            "multiphysics_fv; "
+            "multiphysics_fv, multiphysics_fv_drift; "
             "print(sorted({m.split('.')[0] for m in sys.modules}))")
     p = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                        capture_output=True, text=True, timeout=120)

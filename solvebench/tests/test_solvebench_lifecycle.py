@@ -17,7 +17,8 @@ from solvebench.lifecycle import descendants, reap_descendants
 from solvebench.manifest import ROOT
 from solvebench.tests import tiny
 
-CELLS = ["poisson128_pcg_amg.steady_rhs", "multiphys64_gmres_mgr.steady_rhs"]
+CELLS = ["poisson128_pcg_amg.steady_rhs", "multiphys64_gmres_mgr.steady_rhs",
+         "multiphys64_fgmres_mgr.newton_seq"]
 
 
 def marked(mark: str):

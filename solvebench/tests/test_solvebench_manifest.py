@@ -8,6 +8,7 @@ import re
 
 import pytest
 
+from solvebench import mix as mixes
 from solvebench.manifest import FOLDER, ROOT, Manifest
 from solvebench.tests import tiny
 
@@ -87,6 +88,68 @@ def test_last_line_has_the_contract_keys(tmp_path, trace):
     assert all(set(c) == {"value", "limit"}
                for c in line["checks"].values())
     assert err.strip().splitlines()[-1].startswith("check ")
+
+
+NEWTON = tiny.NEWTON
+
+
+def decisions(err: str) -> list:
+    """The rebuild decisions a sequence run names on stderr."""
+    line, = [x for x in err.splitlines()
+             if x.startswith("solvebench: rebuild decisions ")]
+    return json.loads(line.split("decisions ", 1)[1].lower())
+
+
+@pytest.mark.parametrize("trace", [0, 1])
+def test_a_newton_sequence_line_has_the_contract_keys(tmp_path, trace):
+    """A tiny run of the Newton sequence: the contract's keys, the cell's
+    metrics (``system_s`` and ``setup_s`` untraced), every system solved,
+    and the preconditioner rebuilt on the first system of each time step
+    only, over the warm-up, the window and the traced step."""
+    root = tiny.make_root(tmp_path)
+    rc, out, err = tiny.run(root, NEWTON, trace=trace)
+    assert rc == 0, err
+    line = tiny.last_line(out)
+    assert list(line) == LINE_KEYS + (["breakdown"] if trace else []) \
+        + ["checks"]
+    man = Manifest(root)
+    kind = "per_layer" if trace else "end_to_end"
+    assert set(line["metrics"]) <= {m["name"]
+                                    for m in man.metrics(kind, NEWTON)}
+    if trace:
+        assert {"ingest_s", "rebuild_setup_s", "iters_per_solve",
+                "host_reads_per_solve"} <= set(line["metrics"])
+    else:
+        assert set(line["metrics"]) == {"system_s", "setup_s"}
+    assert line["correct"] and line["failed"] == 0
+    mix = man.traffic("newton_seq")
+    per = mix["newton_per_timestep"]
+    assert line["attempted"] > 0 and line["attempted"] % per == 0
+    got = decisions(err)
+    assert got == [True, False] * (len(got) // 2)
+    traced = man.config("multiphys64_fgmres_mgr")["trace_solves"]
+    assert len(got) == per + line["attempted"] + (traced if trace else 0)
+    assert err.strip().splitlines()[-1].startswith("check ")
+
+
+REBUILD_ALWAYS = """
+from hypredrive_tpu_torch.precon.reuse import PreconReuseState
+PreconReuseState.should_keep = lambda self, ls_id, stats=None: False
+"""
+
+
+def test_a_sequence_run_without_reuse_fails(tmp_path):
+    """A program that rebuilds the preconditioner on every system, though
+    every solve converges: the run exits nonzero and prints no result."""
+    d = tmp_path / "fault"
+    d.mkdir()
+    (d / "sitecustomize.py").write_text(
+        f"import sys\nsys.path.insert(0, {ROOT!r})\n" + REBUILD_ALWAYS)
+    root = tiny.make_root(tmp_path)
+    rc, out, err = tiny.run(root, NEWTON, seconds=0.5,
+                            env=tiny.cpu_env(PYTHONPATH=str(d)))
+    assert rc != 0 and out.strip() == ""
+    assert decisions(err)[:2] == [True, True] and "ReuseError" in err
 
 
 POISSON_2D = '''
@@ -179,3 +242,39 @@ def test_no_card_no_result():
                        cwd=ROOT, env=tiny.cpu_env(), capture_output=True,
                        text=True, timeout=120)
     assert p.returncode != 0 and p.stdout.strip() == ""
+
+
+@pytest.mark.parametrize("change", [
+    {"rhs_count": 8}, {"matrix": "fixed"},
+    {"newton_per_timestep": 0}, {"systems_count": 25}, {"x0": "previous"},
+    {"callers": 2}, {"arrival_rate": 10.0}])
+def test_a_sequence_mix_the_harness_does_not_drive_is_refused(tmp_path,
+                                                            change):
+    """The Newton-sequence mix with a key or a value the harness does not
+    drive: the run exits nonzero, names it and prints no result."""
+    root = tiny.make_root(tmp_path)
+    path = os.path.join(root, FOLDER, "traffic", "newton_seq.json")
+    with open(path) as f:
+        mix = json.load(f)
+    mix.update(change)
+    with open(path, "w") as f:
+        json.dump(mix, f)
+    rc, out, err = tiny.run(root, NEWTON)
+    assert rc != 0 and out.strip() == ""
+    assert next(iter(change)) in err
+
+
+def test_mix_check_drives_both_shapes():
+    """``mix.check`` takes the steady mix and the Newton sequence as
+    written, and refuses a sequence key in the steady mix, a steady key in
+    the sequence, and a sequence that lacks one of its keys."""
+    man = Manifest()
+    steady, newton = man.traffic("steady_rhs"), man.traffic("newton_seq")
+    assert not mixes.is_sequence(steady) and mixes.is_sequence(newton)
+    with pytest.raises(ValueError, match="matrix"):
+        mixes.check(dict(steady, matrix="new_each_solve"))
+    with pytest.raises(ValueError, match="rhs_count"):
+        mixes.check(dict(newton, rhs_count=8))
+    lacking = {k: v for k, v in newton.items() if k != "systems_count"}
+    with pytest.raises(ValueError, match="systems_count"):
+        mixes.check(lacking)
